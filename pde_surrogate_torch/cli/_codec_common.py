@@ -1,0 +1,280 @@
+"""Shared machinery of the DenseED codec CLIs.
+
+Counterpart of pde_surrogate_tpu/cli/_codec_common.py for label-free
+(mixed-residual, Sobel) training: dataset files generated on demand (inputs
+on the host, labels by the device PCG solver), Adam + OneCycle, an epoch
+loop of steps, a test pass with rel-L2 / R^2 / flux-pressure consistency,
+checkpoints with meta, label-free checkpoint selection and the stats dump.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..data.grf import sample_channelized, sample_kle, sample_warped_grf
+from ..data.hdf5 import (Writer, dataset_path, dataset_shapes, load_data,
+                         read_rows, save_args, save_dataset)
+from ..data.pipeline import DeviceDataset
+from ..models.codec import DenseED, module_size
+from ..ops.filters import SobelFilter
+from ..train.checkpoint import (restore_checkpoint, save_checkpoint,
+                                select_consistency_epoch)
+from ..train.codec_trainer import (create_state, current_lr, make_eval_step,
+                                   make_mixed_residual_step)
+from ..utils.config import select_device
+from ..utils.metrics import r2_score
+from .make_dataset import solve_labels
+
+__all__ = ["ensure_dataset", "resolve_dataset_files", "run_codec_training"]
+
+
+def _generate_inputs(data: str, n: int, imsize: int, kle: int, seed: int):
+    if data.startswith("grf"):
+        return sample_kle(n, imsize, kle, rng=seed)
+    if data == "channelized":
+        return sample_channelized(n, imsize, rng=seed)
+    if data == "warped_grf":
+        return sample_warped_grf(n, imsize, rng=seed)
+    raise ValueError(f"unknown data family: {data}")
+
+
+def ensure_dataset(path: str, data: str, n: int, imsize: int, kle: int,
+                   seed: int, with_output: bool, solve_batch: int = 64,
+                   device="cuda"):
+    """Generate-and-cache a dataset file if absent.
+
+    Labels come from the batched PCG solver on ``device``.  An existing
+    file with enough samples but no labels gets them attached in place
+    (read, solved and written slice by slice); any other mismatch raises:
+    LHS designs are not prefix-stable, so a file is never regenerated at a
+    new size.
+    """
+    if os.path.isfile(path):
+        shapes = dataset_shapes(path)
+        have_output = "output" in shapes
+        have_n = shapes["input"][0]
+        if have_n >= n and (have_output or not with_output):
+            return
+        if have_n >= n and with_output and not have_output:
+            print(f"[data] attaching FV labels to existing {path} "
+                  f"({have_n} samples, imsize {imsize})...")
+            in_shape = shapes["input"]
+            with Writer(path, {"input": in_shape,
+                               "output": (have_n, 3) + in_shape[2:]}) as w:
+                def read(i, j):
+                    k = read_rows(path, "input", i, j)
+                    w.write("input", i, k)
+                    return k[:, 0]
+                solve_labels(read, have_n, solve_batch, device,
+                             lambda i, j, y: w.write("output", i, y))
+            print(f"[data] labels attached to {path}")
+            return
+        need = "labels" if (with_output and not have_output) else f"{n} samples"
+        raise FileExistsError(
+            f"{path} exists with {have_n} samples"
+            f"{' (no labels)' if not have_output else ''} but this run needs "
+            f"{need}. Regenerating would REPLACE its contents with a "
+            f"different LHS design. Delete the file to regenerate, or create "
+            f"the full-size version explicitly with "
+            f"`python -m pde_surrogate_torch.cli.make_dataset`.")
+    print(f"[data] generating {path} ({n} samples, imsize {imsize})...")
+    k = _generate_inputs(data, n, imsize, kle, seed)
+    y = None
+    if with_output:
+        y = np.empty((n, 3, imsize, imsize), np.float32)
+        solve_labels(lambda i, j: k[i:j], n, solve_batch, device,
+                     lambda i, j, out: y.__setitem__(slice(i, j), out))
+    save_dataset(path, k[:, None, :, :], y)
+    print(f"[data] wrote {path}")
+
+
+def resolve_dataset_files(args, need_train_output: bool = False):
+    """Reference dataset paths per family, generated lazily at the size the
+    run needs (inputs only for label-free training; val labels solved on
+    ``args.device``)."""
+    if args.data == "grf_kle512":
+        kle = getattr(args, "kle", None) or 512
+        train = dataset_path(args.data_dir, args.imsize,
+                             f"kle{kle}_lhs10000_train")
+        test = dataset_path(args.data_dir, args.imsize,
+                            f"kle{kle}_lhs1000_val")
+        ntrain_total, ntest_total = 10000, 1000
+        family = "grf"
+    elif args.data == "channelized":
+        train = dataset_path(args.data_dir, args.imsize,
+                             "channel_ng64_n4096_train")
+        test = dataset_path(args.data_dir, args.imsize,
+                            "channel_ng64_n512_test")
+        ntrain_total, ntest_total = 4096, 512
+        kle, family = 0, "channelized"
+    elif args.data == "warped_grf":
+        train = dataset_path(args.data_dir, args.imsize,
+                             "warped_gp_ng64_n4096_train")
+        test = dataset_path(args.data_dir, args.imsize,
+                            "warped_gp_ng64_n512_test")
+        ntrain_total, ntest_total = 4096, 512
+        kle, family = 0, "warped_grf"
+    else:
+        raise ValueError(f"unknown data option: {args.data}")
+    if args.ntrain > ntrain_total or args.ntest > ntest_total:
+        raise ValueError(f"{args.data} holds at most {ntrain_total} train and "
+                         f"{ntest_total} test samples")
+    ensure_dataset(train, family, max(args.ntrain, 1), args.imsize, kle,
+                   seed=10_000 + kle, with_output=need_train_output,
+                   device=args.device)
+    ensure_dataset(test, family, max(args.ntest, 1), args.imsize, kle,
+                   seed=20_000 + kle, with_output=True, device=args.device)
+    return train, test
+
+
+def _save_stats(save_dir: str, logger: dict, *metrics):
+    """Metric curves as {metric}.txt (the .pdf curves come with the plots)."""
+    os.makedirs(save_dir, exist_ok=True)
+    for metric in metrics:
+        np.savetxt(os.path.join(save_dir, f"{metric}.txt"),
+                   np.asarray(logger[metric]))
+
+
+def run_codec_training(args, loss_kind: str):
+    """The epoch loop of the codec CLIs; ``loss_kind`` 'mixed_residual'
+    (label-free Sobel physics).  Returns ``(state, logger)``."""
+    if loss_kind != "mixed_residual":
+        raise NotImplementedError(
+            f"loss_kind={loss_kind!r} is not ported yet (ROADMAP B2)")
+    device = select_device(args.device)
+    args.train_dir = os.path.join(args.run_dir, "training")
+    os.makedirs(args.train_dir, exist_ok=True)
+
+    model = DenseED(in_channels=1, out_channels=3, imsize=args.imsize,
+                    blocks=args.blocks, growth_rate=args.growth_rate,
+                    init_features=args.init_features,
+                    drop_rate=args.drop_rate, upsample=args.upsample
+                    ).to(device)
+
+    train_file, test_file = resolve_dataset_files(args)
+    x_train, _, _ = load_data(train_file, args.ntrain, only_input=True)
+    x_test, y_test, stats = load_data(test_file, args.ntest, only_input=False,
+                                      return_stats=True)
+    print(f"Test output variation per channel: {stats['y_variation']}")
+    y_variation = torch.as_tensor(stats["y_variation"], device=device)
+
+    train_ds = DeviceDataset(x_train, batch_size=args.batch_size,
+                             seed=args.seed, device=device)
+    test_ds = DeviceDataset(x_test, y_test, batch_size=args.test_batch_size,
+                            seed=args.seed + 1, device=device, shuffle=False)
+
+    total_steps = args.epochs * len(train_ds)
+    print(f"total steps: {total_steps}")
+    state_kw = dict(lr_max=args.lr, total_steps=total_steps,
+                    div_factor=args.lr_div, pct_start=args.lr_pct,
+                    weight_decay=args.weight_decay)
+    state = create_state(model, **state_kw)
+    n_params, n_layers = module_size(model)
+    print(f"# params {n_params}, # conv layers {n_layers}")
+
+    sobel = SobelFilter(args.imsize, correct=True,
+                        filter_size=getattr(args, "sobel_size", 3))
+    train_step = make_mixed_residual_step(state, sobel, args.weight_bound)
+
+    start_epoch = 1
+    restored_meta: dict = {}
+    if args.ckpt_epoch is not None:
+        state, restored_meta = restore_checkpoint(args.ckpt_dir,
+                                                  args.ckpt_epoch, state,
+                                                  with_meta=True)
+        start_epoch = args.ckpt_epoch + 1
+        print(f"Loaded ckpt at epoch {args.ckpt_epoch}; resume "
+              f"from {start_epoch} to {args.epochs}")
+
+    # resume continues the saved history, so the stats curves and the
+    # label-free checkpoint selection see pre-resume epochs too
+    logger = restored_meta.get("logger") or {
+        "loss_train": [], "loss_test": [], "r2_test": [],
+        "nrmse_test": [], "consistency_test": []}
+    ckpt_consistency: list[tuple[int, float]] = [
+        tuple(t) for t in restored_meta.get("ckpt_consistency", [])]
+
+    def test(epoch, st, record=True):
+        eval_step = make_eval_step(st, sobel, args.weight_bound)
+        losses, rel, sse, cons = [], [], [], []
+        for x, y in test_ds.batches(epoch):
+            out = eval_step(x, y)
+            losses.append(out["loss"])
+            rel.append(out["rel_l2"])
+            sse.append(out["sse"])
+            cons.append(out["consistency"])
+        # one host sync for the whole test set
+        loss_test = float(torch.stack(losses).mean())
+        relative_l2 = torch.cat(rel).mean(0).cpu().numpy()
+        r2 = r2_score(torch.cat(sse).sum(0), y_variation).cpu().numpy()
+        consistency = float(torch.stack(cons).mean())
+        if record and epoch % args.ckpt_freq == 0:
+            ckpt_consistency.append((epoch, consistency))
+        print(f"Epoch {epoch}: test r2-score: {r2}")
+        print(f"Epoch {epoch}: test relative-l2: {relative_l2}")
+        print(f"Epoch {epoch}: flux-pressure consistency: {consistency:.4f}")
+        if record and epoch % args.log_freq == 0:
+            logger["loss_test"].append(loss_test)
+            logger["r2_test"].append(r2.tolist())
+            logger["nrmse_test"].append(relative_l2.tolist())
+            logger["consistency_test"].append(consistency)
+
+    jsonl_path = os.path.join(args.train_dir, "metrics.jsonl")
+    print("Start training..." + "." * 47)
+    tic = time.time()
+    for epoch in range(start_epoch, args.epochs + 1):
+        t0 = time.perf_counter()
+        losses = torch.stack([train_step(x)["loss"]
+                              for (x,) in train_ds.batches(epoch)])
+        losses = losses.cpu()  # the epoch's one host sync
+        epoch_s = time.perf_counter() - t0
+        loss_train = float(losses.mean())
+        rate = len(train_ds) * args.batch_size / epoch_s
+        print(f"Epoch {epoch}, lr {current_lr(state):.6f}, "
+              f"{rate:.0f} samples/sec")
+        print(f"Epoch {epoch}: training loss: {loss_train:.6f}")
+        if epoch % args.log_freq == 0:
+            logger["loss_train"].append(loss_train)
+            with open(jsonl_path, "a") as f:
+                f.write(json.dumps({
+                    "epoch": epoch, "loss_train": loss_train,
+                    "loss_first_step": float(losses[0]),
+                    "lr": current_lr(state), "samples_per_sec": rate,
+                    "epoch_seconds": epoch_s}) + "\n")
+        # eval before checkpointing, so the meta sidecar carries this
+        # epoch's consistency record; save even if eval raises
+        try:
+            test(epoch, state)
+        finally:
+            if epoch % args.ckpt_freq == 0:
+                save_checkpoint(args.ckpt_dir, epoch, state,
+                                meta={"epoch": epoch, "logger": logger,
+                                      "ckpt_consistency": ckpt_consistency})
+
+    training_time = time.time() - tic
+    print(f"Finished training {args.epochs} epochs with {args.ntrain} data "
+          f"using {training_time / 60:.2f} mins")
+    selected = select_consistency_epoch(ckpt_consistency)
+    if selected is not None:
+        # label-free checkpoint selection: long schedules can freeze u in a
+        # drifted state that the flux-pressure consistency detects
+        sel_epoch, sel_cons = selected
+        print(f"Label-free checkpoint selection (min flux-pressure "
+              f"consistency): epoch {sel_epoch} ({sel_cons:.4f})")
+        if sel_epoch != args.epochs:
+            sel_state = create_state(copy.deepcopy(model), **state_kw)
+            restore_checkpoint(args.ckpt_dir, sel_epoch, sel_state)
+            print(f"Metrics at the selected checkpoint (epoch {sel_epoch}):")
+            test(sel_epoch, sel_state, record=False)
+    _save_stats(args.train_dir, logger, "loss_train", "loss_test",
+                "nrmse_test", "r2_test", "consistency_test")
+    args.training_time = training_time
+    args.n_params, args.n_layers = n_params, n_layers
+    save_args(args.run_dir, args)
+    return state, logger

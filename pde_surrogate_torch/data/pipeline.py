@@ -1,0 +1,67 @@
+"""Device-resident input pipeline.
+
+Counterpart of pde_surrogate_tpu/data/pipeline.py.  The datasets are small
+(<= 10k images of 64 x 64), so the whole dataset lives on the device and an
+epoch is a gather driven by a permutation.  The permutation is a pure
+function of (seed, epoch): resuming at epoch e reproduces the exact stream
+without checkpointing dataloader state.  Its bits differ from the JAX
+package's (another generator); the semantics do not.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator
+
+import numpy as np
+import torch
+
+__all__ = ["DeviceDataset"]
+
+
+class DeviceDataset:
+    """Epoch-shuffled, drop-last batches of device-resident tensors.
+
+    Args:
+      arrays: one or more equal-length numpy arrays or tensors.
+      batch_size: drop-last batching (reference DataLoader semantics).
+      seed: base seed; epoch e draws from ``torch.Generator`` seeded by
+        (seed, e).
+      device: where the arrays live.
+    """
+
+    def __init__(self, *arrays, batch_size: int, device: torch.device | str,
+                 seed: int = 0, shuffle: bool = True):
+        lengths = {len(a) for a in arrays}
+        if len(lengths) != 1:
+            raise ValueError(f"array length mismatch: {lengths}")
+        self.n = lengths.pop()
+        self.batch_size = int(batch_size)
+        self.steps_per_epoch = self.n // self.batch_size
+        if self.steps_per_epoch == 0:
+            raise ValueError("batch_size larger than dataset")
+        self.seed = int(seed)
+        self.shuffle = shuffle
+        self.device = torch.device(device)
+        self.arrays = tuple(torch.as_tensor(a).to(self.device)
+                            for a in arrays)
+
+    def epoch_indices(self, epoch: int) -> torch.Tensor:
+        """(steps, batch_size) gather indices for this epoch (pure in epoch)."""
+        if self.shuffle:
+            seed = np.random.SeedSequence([self.seed, int(epoch)])
+            g = torch.Generator().manual_seed(int(seed.generate_state(1)[0]))
+            perm = torch.randperm(self.n, generator=g)
+        else:
+            perm = torch.arange(self.n)
+        usable = self.steps_per_epoch * self.batch_size
+        return perm[:usable].view(self.steps_per_epoch,
+                                  self.batch_size).to(self.device)
+
+    def batches(self, epoch: int) -> Iterator[tuple]:
+        """Iterate (arrays...) batches for one epoch."""
+        idx = self.epoch_indices(epoch)
+        for s in range(self.steps_per_epoch):
+            yield tuple(a.index_select(0, idx[s]) for a in self.arrays)
+
+    def __len__(self) -> int:
+        return self.steps_per_epoch

@@ -1,0 +1,139 @@
+"""Image-gradient stencils as matrix products (Sobel with boundary fix).
+
+Counterpart of pde_surrogate_tpu/ops/filters.py (SobelFilter and its
+builders).  The reference estimates derivatives of field images with Sobel
+correlations (replicate padding), scaled by the image size, and corrects the
+domain boundary with a one-sided 3-point modifier (reference
+utils/image_gradient.py:24-92).  A correlation with a separable (or rank-2)
+kernel is a pair of dense matrix products,
+
+    grad_h(u) = sum_r Lh[r] @ u @ Rh[r],    grad_v(u) = sum_r Lv[r] @ u @ Rv[r],
+
+with replicate padding and the modifier folded into the operator matrices.
+Here they run as two ``torch.matmul`` calls in f32 (the second contracts the
+rank axis with the columns, as the JAX einsum does).  Images are NCHW, or
+any (..., H, W).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+__all__ = ["SobelFilter", "stencil_matrix"]
+
+
+def stencil_matrix(n: int, stencil, offset: int | None = None) -> np.ndarray:
+    """(n, n) float64 operator of a 1-D correlation with replicate padding.
+
+    Row i computes ``sum_k stencil[k] * x[clip(i + k - c, 0, n-1)]`` with
+    ``c`` the stencil centre (default ``len(stencil)//2``).
+    """
+    stencil = np.asarray(stencil, dtype=np.float64)
+    c = len(stencil) // 2 if offset is None else offset
+    m = np.zeros((n, n), dtype=np.float64)
+    for i in range(n):
+        for k, w in enumerate(stencil):
+            j = min(max(i + k - c, 0), n - 1)
+            m[i, j] += w
+    return m
+
+
+def _boundary_modifier(n: int) -> np.ndarray:
+    """Identity with corners [4, -1] / [-1, 4] (utils/image_gradient.py:43-46):
+    with the replicate-padded Sobel value at the edge this realizes a
+    3-point one-sided difference on the domain boundary."""
+    m = np.eye(n, dtype=np.float64)
+    m[0:2, 0] = np.array([4.0, -1.0])
+    m[-2:, -1] = np.array([-1.0, 4.0])
+    return m
+
+
+# Separable decompositions of the reference Sobel kernels: rank-1
+# (smooth, diff) components and the normalizer (utils/image_gradient.py:28-41)
+_SOBEL_COMPONENTS = {
+    3: ([([1.0, 2.0, 1.0], [-1.0, 0.0, 1.0])], 8.0),
+    5: (
+        [
+            ([5.0, 8.0, 10.0, 8.0, 5.0], [-1.0, 0.0, 0.0, 0.0, 1.0]),
+            ([4.0, 10.0, 20.0, 10.0, 4.0], [0.0, -1.0, 0.0, 1.0, 0.0]),
+        ],
+        240.0,
+    ),
+}
+
+
+@functools.lru_cache(maxsize=32)
+def _sobel_operators(imsize: int, filter_size: int, correct: bool):
+    """(Lh, Rh, Lv, Rv) float32 numpy stacks, rank r on the leading axis.
+
+    grad_h(u) = sum_r Lh[r] @ u @ Rh[r] == imsize * corrected d/dx, and
+    likewise grad_v for d/dy.
+    """
+    comps, norm = _SOBEL_COMPONENTS[filter_size]
+    mod = _boundary_modifier(imsize) if correct else np.eye(imsize)
+    lh, rh, lv, rv = [], [], [], []
+    for smooth, diff in comps:
+        s = stencil_matrix(imsize, smooth)
+        d = stencil_matrix(imsize, diff)
+        lh.append(s / norm)
+        rh.append(imsize * d.T @ mod)
+        lv.append(imsize * mod.T @ d / norm)
+        rv.append(s.T)
+    return tuple(np.stack(x).astype(np.float32) for x in (lh, rh, lv, rv))
+
+
+def _apply_lr(image: torch.Tensor, left: torch.Tensor,
+              right_cat: torch.Tensor) -> torch.Tensor:
+    """sum_r L[r] @ image @ R[r] for image (..., H, W).
+
+    ``right_cat`` is the rank stack concatenated along rows, (r*W, W), so
+    the second product contracts (rank, column) together.
+    """
+    y = torch.matmul(left, image.unsqueeze(-3))          # (..., r, H, W)
+    y = y.transpose(-3, -2).flatten(-2)                  # (..., H, r*W)
+    return torch.matmul(y, right_cat)
+
+
+class SobelFilter:
+    """Sobel image-gradient estimator with FD boundary correction.
+
+    ``grad_h`` is d/dx (along W), ``grad_v`` is d/dy (along H), both scaled
+    by the image size, i.e. derivatives on the unit square.  Operators are
+    built once per (filter size, device) and kept on that device.
+    """
+
+    def __init__(self, imsize: int, correct: bool = True,
+                 filter_size: int = 3):
+        self.imsize = int(imsize)
+        self.correct = bool(correct)
+        self.filter_size = int(filter_size)
+        self._cache: dict = {}
+
+    def _ops(self, filter_size: int, device: torch.device):
+        if filter_size not in _SOBEL_COMPONENTS:
+            raise ValueError(f"filter_size must be 3 or 5, got {filter_size}")
+        key = (filter_size, device)
+        ops = self._cache.get(key)
+        if ops is None:
+            lh, rh, lv, rv = _sobel_operators(self.imsize, filter_size,
+                                              self.correct)
+            t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+            ops = (t(lh), t(rh.reshape(-1, rh.shape[-1])),
+                   t(lv), t(rv.reshape(-1, rv.shape[-1])))
+            self._cache[key] = ops
+        return ops
+
+    def grad_h(self, image: torch.Tensor, filter_size: int | None = None
+               ) -> torch.Tensor:
+        """d/dx of (..., H, W) images (unit square, corrected boundary)."""
+        lh, rh, _, _ = self._ops(filter_size or self.filter_size, image.device)
+        return _apply_lr(image, lh, rh)
+
+    def grad_v(self, image: torch.Tensor, filter_size: int | None = None
+               ) -> torch.Tensor:
+        """d/dy of (..., H, W) images (unit square, corrected boundary)."""
+        _, _, lv, rv = self._ops(filter_size or self.filter_size, image.device)
+        return _apply_lr(image, lv, rv)

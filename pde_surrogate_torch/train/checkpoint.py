@@ -1,0 +1,113 @@
+"""Checkpoints with the reference's run-directory layout.
+
+Counterpart of pde_surrogate_tpu/train/checkpoint.py.  A checkpoint is two
+files per epoch in ``run_dir/checkpoints``:
+
+  * ``model_epoch{N}.pt``   — ``{"model", "optimizer", "step"}`` state dicts;
+  * ``model_epoch{N}.json`` — metadata (epoch, logger metric lists,
+    flux-pressure consistency history).
+
+Writes are atomic (tmp + rename), so a killed job never leaves a torn file.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import math
+import os
+import re
+
+import torch
+
+__all__ = ["save_checkpoint", "restore_checkpoint", "latest_epoch",
+           "latest_meta_epoch", "select_consistency_epoch",
+           "checkpoint_file"]
+
+
+def checkpoint_file(ckpt_dir: str, epoch: int) -> str:
+    return os.path.join(ckpt_dir, f"model_epoch{epoch}.pt")
+
+
+def _meta_file(ckpt_dir: str, epoch: int) -> str:
+    return os.path.join(ckpt_dir, f"model_epoch{epoch}.json")
+
+
+def _atomic_write(path: str, data: bytes | str):
+    mode = "wb" if isinstance(data, bytes) else "w"
+    tmp = path + ".tmp"
+    with open(tmp, mode) as f:
+        f.write(data)
+    os.replace(tmp, path)
+
+
+def save_checkpoint(ckpt_dir: str, epoch: int, state,
+                    meta: dict | None = None) -> str:
+    """Write ``state`` (a ``CodecState``) and the JSON-able ``meta``."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    buf = io.BytesIO()
+    torch.save({"model": state.model.state_dict(),
+                "optimizer": state.optimizer.state_dict(),
+                "step": state.step}, buf)
+    path = checkpoint_file(ckpt_dir, epoch)
+    _atomic_write(path, buf.getvalue())
+    if meta is not None:
+        _atomic_write(_meta_file(ckpt_dir, epoch), json.dumps(meta, indent=2))
+    return path
+
+
+def restore_checkpoint(ckpt_dir: str, epoch: int, state,
+                       with_meta: bool = False):
+    """Load the checkpoint of ``epoch`` into ``state`` in place.
+
+    Returns ``state``, or ``(state, meta)`` with ``with_meta`` (meta ``{}``
+    when the sidecar is absent).
+    """
+    device = next(state.model.parameters()).device
+    ckpt = torch.load(checkpoint_file(ckpt_dir, epoch), map_location=device,
+                      weights_only=True)
+    state.model.load_state_dict(ckpt["model"])
+    state.optimizer.load_state_dict(ckpt["optimizer"])
+    state.step = int(ckpt["step"])
+    if not with_meta:
+        return state
+    meta = {}
+    meta_path = _meta_file(ckpt_dir, epoch)
+    if os.path.isfile(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+    return state, meta
+
+
+def _epochs(ckpt_dir: str, ext: str) -> list[int]:
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return [int(m.group(1)) for fn in os.listdir(ckpt_dir)
+            if (m := re.fullmatch(rf"model_epoch(\d+)\.{ext}", fn))]
+
+
+def latest_epoch(ckpt_dir: str) -> int | None:
+    """Largest epoch with a checkpoint file, or None."""
+    epochs = _epochs(ckpt_dir, "pt")
+    return max(epochs) if epochs else None
+
+
+def latest_meta_epoch(ckpt_dir: str, at_or_below: int | None = None
+                      ) -> int | None:
+    """Largest epoch with a meta sidecar (optionally capped), or None.
+
+    A kill between the two atomic writes can leave the newest ``.pt``
+    without its ``.json``; history readers fall back to the newest sidecar.
+    """
+    epochs = _epochs(ckpt_dir, "json")
+    if at_or_below is not None:
+        epochs = [e for e in epochs if e <= at_or_below]
+    return max(epochs) if epochs else None
+
+
+def select_consistency_epoch(history) -> tuple[int, float] | None:
+    """Argmin over finite ``(epoch, consistency)`` records, or None: the
+    label-free checkpoint-selection rule (lowest flux-pressure consistency).
+    """
+    finite = [(int(e), float(c)) for e, c in history if math.isfinite(c)]
+    return min(finite, key=lambda t: t[1]) if finite else None
