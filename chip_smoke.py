@@ -12,11 +12,20 @@
 4. Time each kernel, its plain version and a library yardstick with CUDA
    events, K1 also by batch size at 64^2 and at 128^2 and 256^2; compute
    its bound from this run's shapes.
-5. The main path at full width: make_dataset (labels by the kernel), then
-   label-free training of DenseED [6,8,6]/16/48 at 64^2 for 2 epochs in an
-   empty data dir (its val labels solved by the kernel), then predict_codec
-   on the checkpoint.  Kernel launch counts are zeroed just before and read
-   just after.
+5. The finite-volume objectives and their in-loss PCG on the card against
+   the CPU at 64^2, B=32, 64 CG iterations.
+6. Every path at full width, DenseED [6,8,6]/16/48 at 64^2, each driven
+   through its CLI with the kernel launch counts zeroed just before and
+   read just after: make_dataset (labels by the kernel); label-free
+   training (Sobel, 2 epochs) in an empty data dir, whose val labels the
+   kernel solves; predict_codec; fvcg and sobel_fvcg training (2 epochs
+   each) on that data; supervised (MLE) training, whose train labels
+   the kernel attaches in place; predict_codec on it; a warm start from
+   the fvcg run (--init-from, 2 epochs at lr 3e-4); the LR-range test
+   (--find-lr).
+7. ms per training step by CUDA events and peak memory for each objective,
+   with and without the in-loss CG, and the 128^2 fvcg recipe; kernel
+   launches and device busy time of one step from torch.profiler.
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Any failed check raises
 and the script exits non-zero without that line; so does a machine without
@@ -228,89 +237,308 @@ def phase_cg_times() -> dict:
     return out
 
 
-def phase_main_path(tmp: str) -> int:
-    """Returns the K1 launches of the main path's run."""
+def phase_fvcg_parity():
+    """The FV objectives and the in-loss PCG on the card against the same
+    functions on the CPU: 64^2, B=32, 64 CG iterations, kle512 K, random
+    outputs.  Loss within 1e-5 relative; the gradient with respect to the
+    output within 1e-5 * max|g| of the CPU's, or three times the CPU f32
+    gradient's own distance from float64 where that is larger (the CG's
+    reverse mode amplifies f32 rounding)."""
     import numpy as np
-    from pde_surrogate_torch.cli import make_dataset, predict_codec
-    from pde_surrogate_torch.cli import train_codec_mixed_residual as train
-    from pde_surrogate_torch.data.hdf5 import dataset_shapes
-    from pde_surrogate_torch.ops.kernels.cg_darcy import solve_darcy_cg
-
-    solve_darcy_cg.launches = 0
-    data1, data2 = os.path.join(tmp, "data1"), os.path.join(tmp, "data2")
-    exp = os.path.join(tmp, "exp")
-    tic = time.perf_counter()
-    make_dataset.main(["--device", "cuda", "--data-dir", data1, "--imsize",
-                       "64", "--kle", "512", "--ntrain", "64", "--nval",
-                       "128", "--ntest", "64", "--n-monte-carlo", "64"])
-    after_dataset = solve_darcy_cg.launches
-    log(f"[main] make_dataset: {time.perf_counter() - tic:.2f} s, "
-        f"K1 launches {after_dataset}")
-    check(after_dataset > 0, "make_dataset did not launch K1")
-
-    tic = time.perf_counter()
-    state, logger = train.main([
-        "--device", "cuda", "--data-dir", data2, "--exp-dir", exp,
-        "--data", "grf_kle512", "--imsize", "64", "--blocks", "6,8,6",
-        "--growth-rate", "16", "--init-features", "48", "--ntrain", "512",
-        "--ntest", "128", "--batch-size", "32", "--test-batch-size", "64",
-        "--epochs", "2", "--ckpt-freq", "1", "--no-plot"])
-    train_launches = solve_darcy_cg.launches - after_dataset
-    log(f"[main] train_codec_mixed_residual: "
-        f"{time.perf_counter() - tic:.2f} s, K1 launches {train_launches}")
-    check(train_launches > 0, "training's ensure_dataset did not launch K1")
-    runs = os.path.join(exp, "codec", "mixed_residual")
-    run_dir = os.path.join(runs, os.listdir(runs)[0])
-    with open(os.path.join(run_dir, "training", "metrics.jsonl")) as f:
-        epochs = [json.loads(line) for line in f]
-    first, last = epochs[0]["loss_first_step"], logger["loss_train"][-1]
-    log(f"[main] first step loss {first:.4f}, last epoch mean {last:.4f}; "
-        f"epoch seconds {[round(e['epoch_seconds'], 3) for e in epochs]}")
-    check(all(np.isfinite(logger["loss_train"])) and np.isfinite(first),
-          "training losses not finite")
-    check(last < first, "last epoch's mean loss is not below the first step's")
-    check(np.isfinite(np.asarray(logger["r2_test"])).all()
-          and np.isfinite(np.asarray(logger["nrmse_test"])).all(),
-          "eval metrics not finite")
-    check(os.path.isfile(os.path.join(run_dir, "checkpoints",
-                                      "model_epoch2.pt")),
-          "checkpoint missing")
-
-    val = os.path.join(data2, "64x64", "kle512_lhs1000_val.hdf5")
-    pred_path = os.path.join(tmp, "pred.hdf5")
-    tic = time.perf_counter()
-    pred, rel_l2, r2 = predict_codec.main([
-        "--device", "cuda", "--run-dir", run_dir, "--input", val,
-        "--output", pred_path])
-    log(f"[main] predict_codec: {time.perf_counter() - tic:.2f} s, "
-        f"rel-L2 {rel_l2}, R2 {r2}")
-    check(pred.shape == (128, 3, 64, 64), f"prediction shape {pred.shape}")
-    check(np.isfinite(pred).all() and np.isfinite(rel_l2).all()
-          and np.isfinite(r2).all(), "predictions or metrics not finite")
-    check(dataset_shapes(pred_path) == {"input": (128, 1, 64, 64),
-                                        "output": (128, 3, 64, 64)},
-          "prediction file shapes")
-    return solve_darcy_cg.launches
+    from pde_surrogate_torch.data.grf import sample_kle
+    from pde_surrogate_torch.ops import darcy as td
+    from pde_surrogate_torch.ops.filters import SobelFilter
+    from pde_surrogate_torch.train.codec_trainer import _physics_loss
+    n, bsz, n_cg = 64, 32, 64
+    K = torch.from_numpy(sample_kle(bsz, n, 512, rng=11))[:, None]
+    out = torch.from_numpy(np.random.default_rng(5).normal(
+        0, 1, (bsz, 3, n, n)).astype(np.float32))
+    sobel = SobelFilter(n)
+    fns = {
+        "fv_mixed_residual_loss":
+            lambda k, o: td.fv_mixed_residual_loss(k, o, 10.0)[0],
+        "fv_cg_error_loss":
+            lambda k, o: td.fv_cg_error_loss(k, o, 10.0, n_cg)[0],
+        "_physics_loss(sobel_fvcg, flux weight 1)":
+            lambda k, o: _physics_loss("sobel_fvcg", k, o, sobel, 10.0, None,
+                                       100.0, 1.0, n_cg)[0]}
+    for name, fn in fns.items():
+        def run(device, dtype=torch.float32):
+            o = out.to(device, dtype).detach().requires_grad_(True)
+            loss = fn(K.to(device, dtype), o)
+            loss.backward()
+            return float(loss), o.grad.double().cpu()
+        l_gpu, g_gpu = run("cuda")
+        l_cpu, g_cpu = run("cpu")
+        _, g64 = run("cpu", torch.float64)
+        rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+        gmax = float(g_cpu.abs().max())
+        gerr = float((g_gpu - g_cpu).abs().max()) / gmax
+        cpu_err = float((g_cpu - g64).abs().max()) / gmax
+        bound = max(1e-5, 3 * cpu_err)
+        log(f"[fvcg] {name} 64^2 B={bsz} n_cg={n_cg}: loss {l_gpu:.6e}, "
+            f"rel to CPU {rel:.2e} (1e-5); grad max|card-CPU| {gerr:.2e} "
+            f"of max|g| ({bound:.2e}; CPU f32 vs f64 {cpu_err:.2e})")
+        check(np.isfinite(l_gpu) and bool(torch.isfinite(g_gpu).all()),
+              f"{name}: not finite on the card")
+        check(rel <= 1e-5, f"{name}: card loss off the CPU's by {rel}")
+        check(gerr <= bound, f"{name}: card gradient off the CPU's by {gerr}")
 
 
-def phase_step_time() -> float:
-    """ms per mixed-residual training step, DenseED [6,8,6]/16/48, 64^2,
-    batch 32, f32 with TF32 off."""
+class MainPath:
+    """Drives each path through the CLIs in one temporary tree and counts
+    K1's launches per path (zeroed just before, read just after)."""
+
+    WIDTH = ["--imsize", "64", "--blocks", "6,8,6", "--growth-rate", "16",
+             "--init-features", "48", "--ntrain", "512", "--ntest", "128",
+             "--batch-size", "32", "--test-batch-size", "64",
+             "--ckpt-freq", "1", "--no-plot", "--device", "cuda"]
+
+    def __init__(self, tmp: str):
+        self.tmp = tmp
+        self.data1 = os.path.join(tmp, "data1")
+        self.data2 = os.path.join(tmp, "data2")
+        self.launches: dict[str, int] = {}
+
+    def drive(self, label: str, fn, needs_k1: bool = False):
+        from pde_surrogate_torch.ops.kernels.cg_darcy import solve_darcy_cg
+        solve_darcy_cg.launches = 0
+        tic = time.perf_counter()
+        result = fn()
+        n = solve_darcy_cg.launches
+        self.launches[label] = n
+        log(f"[main] {label}: {time.perf_counter() - tic:.2f} s, "
+            f"K1 launches {n}")
+        if needs_k1:
+            check(n > 0, f"{label} did not launch K1")
+        return result
+
+    def train(self, label: str, module, *argv, exp: str, needs_k1=False,
+              check_descent=True):
+        """One training CLI run in its own exp dir; checks its losses,
+        eval metrics and last checkpoint; returns (state, run dir)."""
+        import numpy as np
+        exp_dir = os.path.join(self.tmp, exp)
+        state, logger = self.drive(label, lambda: module.main(
+            self.WIDTH + ["--data-dir", self.data2, "--exp-dir", exp_dir,
+                          *argv]), needs_k1)
+        (run_dir,) = [r for r, _, files in os.walk(exp_dir)
+                      if "args.txt" in files]
+        with open(os.path.join(run_dir, "training", "metrics.jsonl")) as f:
+            epochs = [json.loads(line) for line in f]
+        first, last = epochs[0]["loss_first_step"], logger["loss_train"][-1]
+        log(f"[main] {label}: first step loss {first:.4f}, last epoch mean "
+            f"{last:.4f}; epoch seconds "
+            f"{[round(e['epoch_seconds'], 3) for e in epochs]}; R2 "
+            f"{logger['r2_test'][-1]}")
+        check(all(np.isfinite(logger["loss_train"])) and np.isfinite(first),
+              f"{label}: training losses not finite")
+        if check_descent:
+            check(last < first, f"{label}: the last epoch's mean loss is "
+                                f"not below the first step's")
+        check(np.isfinite(np.asarray(logger["r2_test"])).all()
+              and np.isfinite(np.asarray(logger["nrmse_test"])).all(),
+              f"{label}: eval metrics not finite")
+        check(os.path.isfile(os.path.join(
+            run_dir, "checkpoints", f"model_epoch{len(epochs)}.pt")),
+            f"{label}: checkpoint missing")
+        return state, run_dir
+
+    def predict(self, label: str, run_dir: str):
+        import numpy as np
+        from pde_surrogate_torch.cli import predict_codec
+        from pde_surrogate_torch.data.hdf5 import dataset_shapes
+        val = os.path.join(self.data2, "64x64", "kle512_lhs1000_val.hdf5")
+        pred_path = os.path.join(self.tmp, f"{label}.hdf5")
+        pred, rel_l2, r2 = self.drive(label, lambda: predict_codec.main([
+            "--device", "cuda", "--run-dir", run_dir, "--input", val,
+            "--output", pred_path]))
+        log(f"[main] {label}: rel-L2 {rel_l2}, R2 {r2}")
+        check(pred.shape == (128, 3, 64, 64), f"prediction shape {pred.shape}")
+        check(np.isfinite(pred).all() and np.isfinite(rel_l2).all()
+              and np.isfinite(r2).all(), "predictions or metrics not finite")
+        check(dataset_shapes(pred_path) == {"input": (128, 1, 64, 64),
+                                            "output": (128, 3, 64, 64)},
+              "prediction file shapes")
+
+    def run(self) -> int:
+        """Every path; returns K1's launches summed over them."""
+        import numpy as np
+        from pde_surrogate_torch.cli import _codec_common, make_dataset
+        from pde_surrogate_torch.cli import train_codec_max_likelihood as mle
+        from pde_surrogate_torch.cli import \
+            train_codec_mixed_residual as train
+        from pde_surrogate_torch.data.hdf5 import dataset_shapes
+
+        self.drive("make_dataset", lambda: make_dataset.main([
+            "--device", "cuda", "--data-dir", self.data1, "--imsize", "64",
+            "--kle", "512", "--ntrain", "64", "--nval", "128", "--ntest",
+            "64", "--n-monte-carlo", "64"]), needs_k1=True)
+        _, sobel_run = self.train("train sobel", train, "--epochs", "2",
+                                  exp="sobel", needs_k1=True)
+        self.predict("predict sobel", sobel_run)
+        _, fvcg_run = self.train("train fvcg", train, "--epochs", "2",
+                                 "--physics", "fvcg", exp="fvcg")
+        # 2 epochs: the Sobel part's loss rises through the first epoch
+        # (the sobel run's epoch-1 mean is above its first step) and falls
+        # in the second
+        self.train("train sobel_fvcg", train, "--epochs", "2", "--physics",
+                   "sobel_fvcg", "--fvcg-flux-weight", "1", exp="hybrid")
+
+        train_file = os.path.join(self.data2, "64x64",
+                                  "kle512_lhs10000_train.hdf5")
+        check("output" not in dataset_shapes(train_file),
+              "the train split should hold inputs only before MLE")
+        _, mle_run = self.train("train mle", mle, "--epochs", "2", exp="mle",
+                                needs_k1=True)
+        check(dataset_shapes(train_file)["output"] == (512, 3, 64, 64),
+              "MLE did not attach the train labels")
+        self.predict("predict mle", mle_run)
+
+        seen = {}
+        make_step = _codec_common.make_mixed_residual_step
+
+        def spy(state, *a, **k):
+            step = make_step(state, *a, **k)
+
+            def first(*batch):
+                if not seen:
+                    seen.update(step=state.step, opt=len(state.optimizer.state),
+                                weights={n: v.detach().clone() for n, v in
+                                         state.model.state_dict().items()})
+                return step(*batch)
+            return first
+
+        _codec_common.make_mixed_residual_step = spy
+        try:
+            # 2 epochs at a fine-tuning lr: the warm start's first batch
+            # lies below the mean loss of its first epoch, which a fresh
+            # Adam at the default lr raises further
+            self.train("train fvcg --init-from", train, "--epochs", "2",
+                       "--physics", "fvcg", "--lr", "3e-4", "--init-from",
+                       f"{fvcg_run}:2", exp="warm")
+        finally:
+            _codec_common.make_mixed_residual_step = make_step
+        src = torch.load(os.path.join(fvcg_run, "checkpoints",
+                                      "model_epoch2.pt"),
+                         map_location="cuda", weights_only=True)["model"]
+        same = (seen["weights"].keys() == src.keys()
+                and all(torch.equal(seen["weights"][n], v)
+                        for n, v in src.items()))
+        log(f"[main] --init-from: first step from step {seen['step']}, "
+            f"{seen['opt']} optimizer states, weights equal to the source's "
+            f"epoch 2: {same}")
+        check(same and seen["step"] == 0 and seen["opt"] == 0,
+              "--init-from did not start from the source's weights with a "
+              "fresh optimizer")
+
+        exp = os.path.join(self.tmp, "find_lr")
+        self.drive("find-lr", lambda: train.main(
+            self.WIDTH + ["--data-dir", self.data2, "--exp-dir", exp,
+                          "--find-lr"]))
+        (run_dir,) = [r for r, _, files in os.walk(exp) if "args.txt" in files]
+        table = np.loadtxt(os.path.join(run_dir, "find_lr.txt"), ndmin=2)
+        log(f"[main] find-lr: {len(table)} rows, log10 lr "
+            f"{table[0, 0]:.2f}..{table[-1, 0]:.2f}, smoothed loss "
+            f"{table[0, 1]:.4f}..{table[-1, 1]:.4f}")
+        check(len(table) > 0 and np.isfinite(table).all(),
+              "find_lr.txt has no rows or non-finite ones")
+        total = sum(self.launches.values())
+        log(f"[main] K1 launches by path: {self.launches}; total {total}")
+        return total
+
+
+STEP_CASES = [
+    # label, imsize, blocks, loss kind, physics keywords
+    ("sobel", 64, [6, 8, 6], "mixed_residual", dict(physics="sobel")),
+    ("fvcg n_cg=64", 64, [6, 8, 6], "mixed_residual",
+     dict(physics="fvcg", fvcg_iters=64)),
+    ("fvcg n_cg=0", 64, [6, 8, 6], "mixed_residual",
+     dict(physics="fvcg", fvcg_iters=0)),
+    ("sobel_fvcg n_cg=64", 64, [6, 8, 6], "mixed_residual",
+     dict(physics="sobel_fvcg", fvcg_iters=64)),
+    ("mle", 64, [6, 8, 6], "mle", {}),
+    ("fvcg n_cg=256", 128, [4, 6, 8, 6, 4], "mixed_residual",
+     dict(physics="fvcg", fvcg_iters=256)),
+]
+
+
+def _step_fn(imsize, blocks, kind, physics_kw):
+    """A training step of DenseED blocks/16/48 on a batch of 32 kle512
+    fields, f32 with TF32 off."""
+    import numpy as np
     from pde_surrogate_torch.data.grf import sample_kle
     from pde_surrogate_torch.models.codec import DenseED
     from pde_surrogate_torch.ops.filters import SobelFilter
     from pde_surrogate_torch.train.codec_trainer import (
-        create_state, make_mixed_residual_step)
+        create_state, make_mixed_residual_step, make_mle_step)
     torch.manual_seed(0)
-    model = DenseED(1, 3, 64, [6, 8, 6], growth_rate=16,
+    model = DenseED(1, 3, imsize, blocks, growth_rate=16,
                     init_features=48).cuda()
     state = create_state(model, lr_max=1e-3, total_steps=1000)
-    step = make_mixed_residual_step(state, SobelFilter(64), 10.0)
-    x = torch.from_numpy(sample_kle(32, 64, 512, rng=3))[:, None].cuda()
-    ms = cuda_ms(lambda: step(x), reps=20, warmup=5)
-    log(f"[step] DenseED [6,8,6]/16/48 64^2 batch 32 f32: {ms:.3f} ms/step "
-        f"({32 / ms * 1e3:.1f} samples/s)")
-    return ms
+    x = torch.from_numpy(sample_kle(32, imsize, 512, rng=3))[:, None].cuda()
+    if kind == "mle":
+        y = torch.from_numpy(np.random.default_rng(3).normal(
+            0, 1, (32, 3, imsize, imsize)).astype(np.float32)).cuda()
+        step = make_mle_step(state)
+        return lambda: step(x, y)
+    step = make_mixed_residual_step(state, SobelFilter(imsize), 10.0,
+                                    **physics_kw)
+    return lambda: step(x)
+
+
+def phase_step_times() -> dict:
+    """ms per training step (CUDA events, 5 warm-up steps) and peak device
+    memory of each objective; returns {label: ms}."""
+    out = {}
+    for label, imsize, blocks, kind, physics_kw in STEP_CASES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fn = _step_fn(imsize, blocks, kind, physics_kw)
+        ms = cuda_ms(fn, reps=10 if imsize > 64 else 20, warmup=5)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        out[label] = ms
+        log(f"[step] {label}: DenseED {blocks}/16/48 {imsize}^2 batch 32 "
+            f"f32: {ms:.3f} ms/step ({32 / ms * 1e3:.1f} samples/s), peak "
+            f"memory {peak:.1f} MiB")
+        del fn
+    cg = out["fvcg n_cg=64"] - out["fvcg n_cg=0"]
+    log(f"[step] in-loss CG at 64^2, n_cg=64: {cg:.3f} ms/step "
+        f"({cg / out['fvcg n_cg=64'] * 100:.1f} % of the fvcg step; fvcg / "
+        f"sobel {out['fvcg n_cg=64'] / out['sobel']:.2f}x)")
+    return out
+
+
+def phase_step_profile():
+    """One step of sobel and of fvcg (n_cg=64) at 64^2 under
+    torch.profiler: device kernels launched and their summed time against
+    the step's wall time (CUDA events)."""
+    from torch.profiler import ProfilerActivity, profile
+    for label, imsize, blocks, kind, physics_kw in STEP_CASES[:2]:
+        fn = _step_fn(imsize, blocks, kind, physics_kw)
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+        wall = start.elapsed_time(end)
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+        if kernels:
+            log(f"[profile] {label}: {len(kernels)} device kernels in one "
+                f"step, {busy:.3f} ms busy of {wall:.3f} ms "
+                f"({busy / wall * 100:.1f} %)")
+        else:
+            log(f"[profile] {label}: the profiler recorded no device "
+                f"kernels (device time not measured); step {wall:.3f} ms")
+        del fn
 
 
 def main() -> int:
@@ -325,12 +553,14 @@ def main() -> int:
     max_err = phase_cg_parity()
     phase_bn_parity()
     times = phase_cg_times()
+    phase_fvcg_parity()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        launches = phase_main_path(tmp)
+        launches = MainPath(tmp).run()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    phase_step_time()
+    phase_step_times()
+    phase_step_profile()
 
     kernels = [{
         "name": "cg_darcy", "route": "cuda",

@@ -1,10 +1,11 @@
 """Shared machinery of the DenseED codec CLIs.
 
-Counterpart of pde_surrogate_tpu/cli/_codec_common.py for label-free
-(mixed-residual, Sobel) training: dataset files generated on demand (inputs
-on the host, labels by the device PCG solver), Adam + OneCycle, an epoch
-loop of steps, a test pass with rel-L2 / R^2 / flux-pressure consistency,
-checkpoints with meta, label-free checkpoint selection and the stats dump.
+Counterpart of pde_surrogate_tpu/cli/_codec_common.py: dataset files
+generated on demand (inputs on the host, labels by the device PCG solver),
+Adam + OneCycle, an epoch loop of label-free physics steps or supervised
+MSE steps, a test pass with rel-L2 / R^2 / flux-pressure consistency,
+checkpoints with meta, warm starts (``--init-from``), label-free checkpoint
+selection, the stats dump and the LR-range test (``--find-lr``).
 """
 
 from __future__ import annotations
@@ -23,15 +24,18 @@ from ..data.hdf5 import (Writer, dataset_path, dataset_shapes, load_data,
 from ..data.pipeline import DeviceDataset
 from ..models.codec import DenseED, module_size
 from ..ops.filters import SobelFilter
-from ..train.checkpoint import (restore_checkpoint, save_checkpoint,
+from ..train.checkpoint import (latest_epoch, restore_checkpoint,
+                                restore_weights, save_checkpoint,
                                 select_consistency_epoch)
 from ..train.codec_trainer import (create_state, current_lr, make_eval_step,
-                                   make_mixed_residual_step)
+                                   make_mixed_residual_step, make_mle_step)
+from ..train.schedules import find_lr_schedule
 from ..utils.config import select_device
 from ..utils.metrics import r2_score
 from .make_dataset import solve_labels
 
-__all__ = ["ensure_dataset", "resolve_dataset_files", "run_codec_training"]
+__all__ = ["ensure_dataset", "resolve_dataset_files", "reject_unported",
+           "run_codec_training", "run_find_lr"]
 
 
 def _generate_inputs(data: str, n: int, imsize: int, kle: int, seed: int):
@@ -133,6 +137,76 @@ def resolve_dataset_files(args, need_train_output: bool = False):
     return train, test
 
 
+def reject_unported(args):
+    """Raise on every codec CLI option whose code this package does not
+    have yet, naming its ROADMAP item; none is silently ignored."""
+    todo = []
+    if args.dtype != "f32":
+        todo.append("--dtype bf16 (ROADMAP A14)")
+    if getattr(args, "concat_free", False):
+        todo.append("--concat-free (ROADMAP A15)")
+    if args.n_devices is not None and args.n_devices > 1:
+        todo.append("--n-devices > 1 (ROADMAP E3)")
+    if args.profile_epoch:
+        todo.append("--profile-epoch (ROADMAP E1)")
+    if todo:
+        raise NotImplementedError("not ported yet: " + ", ".join(todo))
+    if not args.no_plot:
+        print("[note] prediction plots are not ported yet (ROADMAP E1); "
+              "training runs without them")
+
+
+def _build_model(args, device) -> DenseED:
+    return DenseED(in_channels=1, out_channels=3, imsize=args.imsize,
+                   blocks=args.blocks, growth_rate=args.growth_rate,
+                   init_features=args.init_features,
+                   drop_rate=args.drop_rate, upsample=args.upsample
+                   ).to(device)
+
+
+def _physics_kwargs(args) -> dict:
+    """The label-free objective of a run (the MLE driver has no --physics:
+    its test loss is the Sobel mixed residual)."""
+    return dict(physics=getattr(args, "physics", "sobel"),
+                fvcg_weight=getattr(args, "fvcg_weight", 100.0),
+                fvcg_flux_weight=getattr(args, "fvcg_flux_weight", 0.0),
+                fvcg_iters=getattr(args, "fvcg_iters", None))
+
+
+def _train_data(args, loss_kind: str, device):
+    """``(train DeviceDataset, test file)``: the training split holds K only
+    for label-free training and (K, labels) for MLE, whose train file gets
+    its labels from the PCG solver when it has none."""
+    mle = loss_kind == "mle"
+    train_file, test_file = resolve_dataset_files(args, need_train_output=mle)
+    x_train, y_train, _ = load_data(train_file, args.ntrain, only_input=not mle)
+    arrays = (x_train,) if y_train is None else (x_train, y_train)
+    return DeviceDataset(*arrays, batch_size=args.batch_size, seed=args.seed,
+                         device=device), test_file
+
+
+def _train_step(state, loss_kind: str, sobel, args, physics_kw: dict):
+    if loss_kind == "mle":
+        return make_mle_step(state)
+    if loss_kind == "mixed_residual":
+        return make_mixed_residual_step(state, sobel, args.weight_bound,
+                                        **physics_kw)
+    raise ValueError(f"unknown loss_kind: {loss_kind!r}")
+
+
+def _warm_start(model, init_from: str) -> None:
+    """--init-from 'dir[:epoch]': the weights and BN running stats of that
+    run's checkpoint (default: its latest).  The codec is fully
+    convolutional, so a run at another imsize initialises this one."""
+    src, _, ep = init_from.partition(":")
+    src_ckpt = os.path.join(src, "checkpoints")
+    ep = int(ep) if ep else latest_epoch(src_ckpt)
+    if ep is None:
+        raise FileNotFoundError(f"no checkpoints in {src_ckpt}")
+    restore_weights(src_ckpt, ep, model)
+    print(f"Warm-started weights from {src_ckpt} epoch {ep}")
+
+
 def _save_stats(save_dir: str, logger: dict, *metrics):
     """Metric curves as {metric}.txt (the .pdf curves come with the plots)."""
     os.makedirs(save_dir, exist_ok=True)
@@ -142,30 +216,19 @@ def _save_stats(save_dir: str, logger: dict, *metrics):
 
 
 def run_codec_training(args, loss_kind: str):
-    """The epoch loop of the codec CLIs; ``loss_kind`` 'mixed_residual'
-    (label-free Sobel physics).  Returns ``(state, logger)``."""
-    if loss_kind != "mixed_residual":
-        raise NotImplementedError(
-            f"loss_kind={loss_kind!r} is not ported yet (ROADMAP B2)")
+    """The epoch loop of both codec CLIs; ``loss_kind`` 'mixed_residual'
+    (label-free, ``args.physics``) or 'mle' (MSE against solver labels).
+    Returns ``(state, logger)``."""
     device = select_device(args.device)
     args.train_dir = os.path.join(args.run_dir, "training")
     os.makedirs(args.train_dir, exist_ok=True)
 
-    model = DenseED(in_channels=1, out_channels=3, imsize=args.imsize,
-                    blocks=args.blocks, growth_rate=args.growth_rate,
-                    init_features=args.init_features,
-                    drop_rate=args.drop_rate, upsample=args.upsample
-                    ).to(device)
-
-    train_file, test_file = resolve_dataset_files(args)
-    x_train, _, _ = load_data(train_file, args.ntrain, only_input=True)
+    model = _build_model(args, device)
+    train_ds, test_file = _train_data(args, loss_kind, device)
     x_test, y_test, stats = load_data(test_file, args.ntest, only_input=False,
                                       return_stats=True)
     print(f"Test output variation per channel: {stats['y_variation']}")
     y_variation = torch.as_tensor(stats["y_variation"], device=device)
-
-    train_ds = DeviceDataset(x_train, batch_size=args.batch_size,
-                             seed=args.seed, device=device)
     test_ds = DeviceDataset(x_test, y_test, batch_size=args.test_batch_size,
                             seed=args.seed + 1, device=device, shuffle=False)
 
@@ -180,10 +243,18 @@ def run_codec_training(args, loss_kind: str):
 
     sobel = SobelFilter(args.imsize, correct=True,
                         filter_size=getattr(args, "sobel_size", 3))
-    train_step = make_mixed_residual_step(state, sobel, args.weight_bound)
+    physics_kw = _physics_kwargs(args)
+    train_step = _train_step(state, loss_kind, sobel, args, physics_kw)
 
     start_epoch = 1
     restored_meta: dict = {}
+    init_from = getattr(args, "init_from", None)
+    if init_from and args.ckpt_epoch is not None:
+        print(f"--init-from {init_from} not applied: resuming this run "
+              f"from --ckpt-epoch {args.ckpt_epoch}")
+    elif init_from:
+        # weights and BN stats only; the optimizer and schedule stay fresh
+        _warm_start(model, init_from)
     if args.ckpt_epoch is not None:
         state, restored_meta = restore_checkpoint(args.ckpt_dir,
                                                   args.ckpt_epoch, state,
@@ -201,7 +272,7 @@ def run_codec_training(args, loss_kind: str):
         tuple(t) for t in restored_meta.get("ckpt_consistency", [])]
 
     def test(epoch, st, record=True):
-        eval_step = make_eval_step(st, sobel, args.weight_bound)
+        eval_step = make_eval_step(st, sobel, args.weight_bound, **physics_kw)
         losses, rel, sse, cons = [], [], [], []
         for x, y in test_ds.batches(epoch):
             out = eval_step(x, y)
@@ -230,8 +301,8 @@ def run_codec_training(args, loss_kind: str):
     tic = time.time()
     for epoch in range(start_epoch, args.epochs + 1):
         t0 = time.perf_counter()
-        losses = torch.stack([train_step(x)["loss"]
-                              for (x,) in train_ds.batches(epoch)])
+        losses = torch.stack([train_step(*batch)["loss"]
+                              for batch in train_ds.batches(epoch)])
         losses = losses.cpu()  # the epoch's one host sync
         epoch_s = time.perf_counter() - t0
         loss_train = float(losses.mean())
@@ -278,3 +349,73 @@ def run_codec_training(args, loss_kind: str):
     args.n_params, args.n_layers = n_params, n_layers
     save_args(args.run_dir, args)
     return state, logger
+
+
+def run_find_lr(args, loss_kind: str, init_value: float = 1e-8,
+                final_value: float = 10.0, beta: float = 0.98):
+    """LR-range test (reference utils/practices.py:45-83), the --find-lr
+    hook: one epoch with the lr growing exponentially from ``init_value``
+    to ``final_value``, the loss smoothed with ``beta``, stopped when the
+    smoothed loss passes 4x the best.  Writes ``find_lr.txt`` (log10_lr,
+    smoothed_loss) into the run dir and returns ``(log_lrs, losses)``.
+
+    As in the JAX package the label-free test runs the Sobel mixed
+    residual whatever ``--physics`` says.  The ``.pdf`` plot comes with
+    ROADMAP E1.
+    """
+    device = select_device(args.device)
+    model = _build_model(args, device)
+    train_ds, _ = _train_data(args, loss_kind, device)
+    num = max(len(train_ds) - 1, 1)
+    state = create_state(model, lr_max=args.lr, total_steps=num,
+                         schedule=find_lr_schedule(init_value, final_value,
+                                                   num),
+                         weight_decay=args.weight_decay)
+    sobel = SobelFilter(args.imsize, correct=True,
+                        filter_size=getattr(args, "sobel_size", 3))
+    step = _train_step(state, loss_kind, sobel, args, {})
+    if getattr(args, "physics", "sobel") != "sobel":
+        print(f"[find_lr] the range test runs the Sobel mixed residual; "
+              f"--physics {args.physics} applies to training only")
+
+    mult = (final_value / init_value) ** (1.0 / num)
+    avg_loss, best_loss = 0.0, 0.0
+    log_lrs, losses = [], []
+    # fetch the losses 8 steps at a time; the divergence stop then acts at
+    # that granularity, which only trims the curve's tail
+    chunk = 8
+    pending: list[tuple[int, float, torch.Tensor]] = []
+    stop = False
+
+    def flush():
+        nonlocal avg_loss, best_loss, stop
+        vals = torch.stack([m for _, _, m in pending]).cpu().numpy()
+        for (bnum, lr, _), val in zip(pending, vals):
+            avg_loss = beta * avg_loss + (1 - beta) * float(val)
+            smoothed = avg_loss / (1 - beta ** bnum)
+            if bnum > 1 and smoothed > 4 * best_loss:
+                print(f"[find_lr] diverged at lr {lr:.3e} (step {bnum})")
+                stop = True
+                break
+            if smoothed < best_loss or bnum == 1:
+                best_loss = smoothed
+            log_lrs.append(np.log10(lr))
+            losses.append(smoothed)
+        pending.clear()
+
+    for batch_num, batch in enumerate(train_ds.batches(1), start=1):
+        lr = init_value * mult ** (batch_num - 1)
+        pending.append((batch_num, lr, step(*batch)["loss"]))
+        if len(pending) >= chunk:
+            flush()
+            if stop:
+                break
+    if pending and not stop:
+        flush()
+    print(f"[find_lr] best smoothed loss {best_loss:.4f}; "
+          f"suggested lr ~ 10^{log_lrs[int(np.argmin(losses))]:.2f} / 10")
+    np.savetxt(os.path.join(args.run_dir, "find_lr.txt"),
+               np.stack([log_lrs, losses], axis=1),
+               header="log10_lr smoothed_loss")
+    print("[note] the find_lr.pdf plot is not ported yet (ROADMAP E1)")
+    return log_lrs, losses

@@ -2,8 +2,11 @@
 
 Counterpart of pde_surrogate_tpu/cli/train_codec_mixed_residual.py: the same
 flags, defaults and run-dir naming, plus ``--device`` (default ``cuda``).
-Options whose code is not ported yet raise ``NotImplementedError`` naming
-the ROADMAP item; none is silently ignored.
+``--find-lr`` runs the LR-range test instead of training; ``--init-from``
+warm-starts the weights.  Options whose code is not ported yet
+(``--dtype bf16``, ``--concat-free``, ``--n-devices > 1``,
+``--profile-epoch``) raise ``NotImplementedError`` naming the ROADMAP
+item; none is silently ignored.
 
 Run:  python -m pde_surrogate_torch.cli.train_codec_mixed_residual \
           --data grf_kle512 --ntrain 4096 --batch-size 32
@@ -14,7 +17,7 @@ from __future__ import annotations
 import argparse
 
 from ..utils.config import BaseParser, int_list
-from ._codec_common import run_codec_training
+from ._codec_common import reject_unported, run_codec_training, run_find_lr
 
 
 class Parser(BaseParser):
@@ -52,11 +55,28 @@ class Parser(BaseParser):
                           help="derivative stencil for the physics loss")
         self.add_argument("--physics", type=str, default="sobel",
                           choices=["sobel", "fv", "fvcg", "sobel_fvcg"],
-                          help="label-free objective; only 'sobel' (the "
-                               "reference's mixed residual) is ported")
-        self.add_argument("--fvcg-weight", type=float, default=100.0)
-        self.add_argument("--fvcg-flux-weight", type=float, default=0.0)
-        self.add_argument("--fvcg-iters", type=int, default=None)
+                          help="label-free objective: 'sobel' = the "
+                               "reference's mixed residual (models/darcy.py"
+                               ":162-233); 'fv' = the exactly-identifiable "
+                               "finite-volume residual "
+                               "(ops/darcy.fv_mixed_residual_loss, "
+                               "ill-conditioned); 'fvcg' = the "
+                               "CG-preconditioned error objective "
+                               "(ops/darcy.fv_cg_error_loss); 'sobel_fvcg' "
+                               "= sobel + the CG-recovered pressure-error "
+                               "anchor (hybrid)")
+        self.add_argument("--fvcg-weight", type=float, default=100.0,
+                          help="weight of the CG pressure-error term in "
+                               "the sobel_fvcg hybrid objective")
+        self.add_argument("--fvcg-flux-weight", type=float, default=0.0,
+                          help="weight of the flux anchor against the "
+                               "CG-corrected pressure's conservative face "
+                               "fluxes (ops/darcy.fv_cg_anchors) in the "
+                               "sobel_fvcg hybrid")
+        self.add_argument("--fvcg-iters", type=int, default=None,
+                          help="CG depth of the fvcg objectives (default: "
+                               "the grid size; kappa(A) ~ n^2 needs Krylov "
+                               "depth ~ n)")
         self.add_argument("--dtype", type=str, default="f32",
                           choices=["f32", "bf16"],
                           help="conv compute dtype; only f32 is ported")
@@ -73,19 +93,26 @@ class Parser(BaseParser):
         self.add_argument("--n-devices", type=int, default=None,
                           help="data-parallel devices; only one is ported")
         self.add_argument("--find-lr", action="store_true", default=False,
-                          help="LR-range test; not ported")
+                          help="run the LR-range test instead of training "
+                               "(utils/practices.py:45-83)")
         self.add_argument("--no-scan-epochs", dest="scan_epochs",
                           action="store_false", default=True,
                           help="accepted for compatibility: the port always "
                                "runs the per-step loop (the same semantics)")
         self.add_argument("--init-from", type=str, default=None,
-                          help="warm start; not ported")
+                          help="run dir (or 'dir:epoch') to warm-start "
+                               "weights from, with a fresh optimizer and lr "
+                               "schedule; the source may be trained at "
+                               "another imsize (the codec is fully "
+                               "convolutional). A --ckpt-epoch resume wins "
+                               "over it. Use a distinct --run to keep the "
+                               "run dir separate")
         self.add_device_arg()
         self.add_logging_args(ckpt_freq=100, log_freq=1, plot_freq=50)
 
     def parse(self, argv=None):
         args = self.parse_args(argv)
-        _reject_unported(args)
+        reject_unported(args)
         hparams = (f"{args.data}_ntrain{args.ntrain}_run{args.run}_"
                    f"bs{args.batch_size}_lr{args.lr}_epochs{args.epochs}")
         if args.kle != 512:
@@ -96,9 +123,21 @@ class Parser(BaseParser):
             hparams += f"_wb{args.weight_bound:g}"
         if args.sobel_size != 3:
             hparams += f"_sobel{args.sobel_size}"
+        if args.physics != "sobel":
+            hparams += f"_{args.physics}"
+            if args.physics == "sobel_fvcg" and args.fvcg_weight != 100.0:
+                hparams += f"_w{args.fvcg_weight:g}"
+            if args.physics == "sobel_fvcg" and args.fvcg_flux_weight != 0.0:
+                hparams += f"_fw{args.fvcg_flux_weight:g}"
+            if args.fvcg_iters is not None:
+                hparams += f"_cg{args.fvcg_iters}"
         if args.upsample != "nearest":
             hparams += f"_{args.upsample}"
-        if not args.shared_stats:
+        if args.dtype != "f32":
+            hparams += f"_{args.dtype}"
+        if args.concat_free:
+            hparams += "_cf"
+        elif not args.shared_stats:
             hparams += "_nss"
         if args.ntrain % args.batch_size or args.ntest % args.test_batch_size:
             self.error("--ntrain and --ntest must be multiples of "
@@ -106,32 +145,10 @@ class Parser(BaseParser):
         return self.finalize(args, hparams)
 
 
-def _reject_unported(args):
-    """Raise on every option whose code this package does not have yet."""
-    todo = []
-    if args.physics != "sobel":
-        todo.append(f"--physics {args.physics} (ROADMAP B1)")
-    if args.dtype != "f32":
-        todo.append("--dtype bf16 (ROADMAP A14)")
-    if args.concat_free:
-        todo.append("--concat-free (ROADMAP A15)")
-    if args.n_devices is not None and args.n_devices > 1:
-        todo.append("--n-devices > 1 (ROADMAP E3)")
-    if args.find_lr:
-        todo.append("--find-lr (ROADMAP A13)")
-    if args.init_from:
-        todo.append("--init-from (ROADMAP A12)")
-    if args.profile_epoch:
-        todo.append("--profile-epoch (ROADMAP E1)")
-    if todo:
-        raise NotImplementedError("not ported yet: " + ", ".join(todo))
-    if not args.no_plot:
-        print("[note] prediction plots are not ported yet (ROADMAP E1); "
-              "training runs without them")
-
-
 def main(argv=None):
     args = Parser().parse(argv)
+    if args.find_lr:
+        return run_find_lr(args, loss_kind="mixed_residual")
     return run_codec_training(args, loss_kind="mixed_residual")
 
 

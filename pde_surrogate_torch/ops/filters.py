@@ -102,7 +102,8 @@ class SobelFilter:
 
     ``grad_h`` is d/dx (along W), ``grad_v`` is d/dy (along H), both scaled
     by the image size, i.e. derivatives on the unit square.  Operators are
-    built once per (filter size, device) and kept on that device.
+    built once per (filter size, device, dtype) and kept on that device;
+    a float64 image gets the float32 coefficients in float64.
     """
 
     def __init__(self, imsize: int, correct: bool = True,
@@ -112,15 +113,16 @@ class SobelFilter:
         self.filter_size = int(filter_size)
         self._cache: dict = {}
 
-    def _ops(self, filter_size: int, device: torch.device):
+    def _ops(self, filter_size: int, image: torch.Tensor):
         if filter_size not in _SOBEL_COMPONENTS:
             raise ValueError(f"filter_size must be 3 or 5, got {filter_size}")
-        key = (filter_size, device)
+        key = (filter_size, image.device, image.dtype)
         ops = self._cache.get(key)
         if ops is None:
             lh, rh, lv, rv = _sobel_operators(self.imsize, filter_size,
                                               self.correct)
-            t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+            t = lambda a: torch.from_numpy(a).to(image.device,  # noqa: E731
+                                                 image.dtype)
             ops = (t(lh), t(rh.reshape(-1, rh.shape[-1])),
                    t(lv), t(rv.reshape(-1, rv.shape[-1])))
             self._cache[key] = ops
@@ -129,11 +131,11 @@ class SobelFilter:
     def grad_h(self, image: torch.Tensor, filter_size: int | None = None
                ) -> torch.Tensor:
         """d/dx of (..., H, W) images (unit square, corrected boundary)."""
-        lh, rh, _, _ = self._ops(filter_size or self.filter_size, image.device)
+        lh, rh, _, _ = self._ops(filter_size or self.filter_size, image)
         return _apply_lr(image, lh, rh)
 
     def grad_v(self, image: torch.Tensor, filter_size: int | None = None
                ) -> torch.Tensor:
         """d/dy of (..., H, W) images (unit square, corrected boundary)."""
-        _, _, lv, rv = self._ops(filter_size or self.filter_size, image.device)
+        _, _, lv, rv = self._ops(filter_size or self.filter_size, image)
         return _apply_lr(image, lv, rv)

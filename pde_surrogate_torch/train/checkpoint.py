@@ -20,8 +20,8 @@ import re
 
 import torch
 
-__all__ = ["save_checkpoint", "restore_checkpoint", "latest_epoch",
-           "latest_meta_epoch", "select_consistency_epoch",
+__all__ = ["save_checkpoint", "restore_checkpoint", "restore_weights",
+           "latest_epoch", "latest_meta_epoch", "select_consistency_epoch",
            "checkpoint_file"]
 
 
@@ -56,6 +56,12 @@ def save_checkpoint(ckpt_dir: str, epoch: int, state,
     return path
 
 
+def _load(ckpt_dir: str, epoch: int, model) -> dict:
+    device = next(model.parameters()).device
+    return torch.load(checkpoint_file(ckpt_dir, epoch), map_location=device,
+                      weights_only=True)
+
+
 def restore_checkpoint(ckpt_dir: str, epoch: int, state,
                        with_meta: bool = False):
     """Load the checkpoint of ``epoch`` into ``state`` in place.
@@ -63,9 +69,7 @@ def restore_checkpoint(ckpt_dir: str, epoch: int, state,
     Returns ``state``, or ``(state, meta)`` with ``with_meta`` (meta ``{}``
     when the sidecar is absent).
     """
-    device = next(state.model.parameters()).device
-    ckpt = torch.load(checkpoint_file(ckpt_dir, epoch), map_location=device,
-                      weights_only=True)
+    ckpt = _load(ckpt_dir, epoch, state.model)
     state.model.load_state_dict(ckpt["model"])
     state.optimizer.load_state_dict(ckpt["optimizer"])
     state.step = int(ckpt["step"])
@@ -77,6 +81,12 @@ def restore_checkpoint(ckpt_dir: str, epoch: int, state,
         with open(meta_path) as f:
             meta = json.load(f)
     return state, meta
+
+
+def restore_weights(ckpt_dir: str, epoch: int, model) -> None:
+    """Load only the model's weights and BN running stats of ``epoch``
+    (a warm start: the caller keeps its fresh optimizer and schedule)."""
+    model.load_state_dict(_load(ckpt_dir, epoch, model)["model"])
 
 
 def _epochs(ckpt_dir: str, ext: str) -> list[int]:

@@ -1,24 +1,28 @@
-"""Training and eval steps for the label-free DenseED codec.
+"""Training and eval steps for the DenseED codec drivers.
 
-Counterpart of pde_surrogate_tpu/train/codec_trainer.py for
-``physics="sobel"``: the reference's mixed-residual training
-(train_codec_mixed_residual.py:224-239) with Adam + OneCycle, and the test
-step with rel-L2, SSE and the flux-pressure consistency.  The JAX package
-scans an epoch as one device program; here an epoch is a Python loop over
-these steps, which return device tensors and never synchronise.
+Counterpart of pde_surrogate_tpu/train/codec_trainer.py: the label-free
+physics step (the reference's mixed residual,
+train_codec_mixed_residual.py:224-239, or one of the finite-volume
+objectives) and the supervised MSE step
+(train_codec_max_likelihood.py:201-213), both with Adam + OneCycle, and
+the test step with rel-L2, SSE and the flux-pressure consistency.  The JAX
+package scans an epoch as one device program; here an epoch is a Python
+loop over these steps, which return device tensors and never synchronise.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.darcy import flux_pressure_consistency, mixed_residual_loss
+from ..ops.darcy import (flux_pressure_consistency, fv_cg_anchors,
+                         fv_cg_error_loss, fv_mixed_residual_loss,
+                         mixed_residual_loss)
 from ..ops.filters import SobelFilter
 from ..utils.metrics import relative_l2, squared_error_sum
 from .schedules import one_cycle_schedule
 
 __all__ = ["CodecState", "create_state", "make_mixed_residual_step",
-           "make_eval_step", "current_lr"]
+           "make_mle_step", "make_eval_step", "current_lr"]
 
 
 class CodecState:
@@ -41,10 +45,13 @@ def _adam_l2(params, lr: float, weight_decay: float = 0.0):
 
 def create_state(model, lr_max: float, total_steps: int,
                  div_factor: float = 2.0, pct_start: float = 0.3,
-                 weight_decay: float = 0.0) -> CodecState:
+                 weight_decay: float = 0.0, schedule=None) -> CodecState:
     """Adam + OneCycle around ``model`` (reference optimizer:
-    train_codec_mixed_residual.py:151-154)."""
-    schedule = one_cycle_schedule(lr_max, total_steps, div_factor, pct_start)
+    train_codec_mixed_residual.py:151-154).  ``schedule`` overrides the
+    OneCycle step -> lr function (the --find-lr range test)."""
+    if schedule is None:
+        schedule = one_cycle_schedule(lr_max, total_steps, div_factor,
+                                      pct_start)
     optimizer = _adam_l2(model.parameters(), schedule(0), weight_decay)
     return CodecState(model, optimizer, schedule)
 
@@ -54,25 +61,81 @@ def current_lr(state: CodecState) -> float:
     return state.schedule(max(state.step - 1, 0))
 
 
+def _physics_loss(physics: str, x, output, sobel, weight_bound,
+                  nonlinear=None, fvcg_weight: float = 100.0,
+                  fvcg_flux_weight: float = 0.0,
+                  fvcg_iters: int | None = None):
+    """The label-free objectives, each ``(loss, (pde, dirichlet, neumann))``:
+
+    * ``sobel``: the reference's Sobel mixed residual (models/darcy.py
+      :162-233);
+    * ``fv``: the exactly identifiable finite-volume residual
+      (``fv_mixed_residual_loss``; ill-conditioned);
+    * ``fvcg``: the CG-preconditioned error objective
+      (``fv_cg_error_loss``);
+    * ``sobel_fvcg``: the Sobel mixed residual + ``fvcg_weight`` x the
+      CG-recovered pressure-error norm + ``fvcg_flux_weight`` x the flux
+      anchor against the CG-corrected pressure (``fv_cg_anchors``).
+
+    ``fvcg_iters=None`` scales the CG depth with the grid size.  The
+    nonlinear laws come with ROADMAP C2; the FV objectives take the linear
+    law only, as in the JAX package.
+    """
+    if physics == "sobel":
+        if nonlinear is not None:
+            raise NotImplementedError(
+                f"nonlinear law {nonlinear!r} is not ported yet (ROADMAP C2)")
+        return mixed_residual_loss(x, output, sobel, weight_bound)
+    if physics == "sobel_fvcg":
+        if nonlinear is not None:
+            raise ValueError("physics='sobel_fvcg' supports the linear law "
+                             "only")
+        loss, (pde, diri, neum) = mixed_residual_loss(x, output, sobel,
+                                                      weight_bound)
+        err_u, err_flux = fv_cg_anchors(x, output, fvcg_iters)
+        anchor = fvcg_weight * err_u + fvcg_flux_weight * err_flux
+        return loss + anchor, (pde + anchor, diri, neum)
+    if physics in ("fv", "fvcg"):
+        if nonlinear is not None:
+            raise ValueError(f"physics='{physics}' supports the linear law "
+                             f"only")
+        if physics == "fv":
+            return fv_mixed_residual_loss(x, output, weight_bound)
+        return fv_cg_error_loss(x, output, weight_bound, fvcg_iters)
+    raise ValueError(f"unknown physics loss: {physics}")
+
+
+def _apply_update(state: CodecState, loss: torch.Tensor):
+    """Backward, then Adam at the scheduled lr of this update."""
+    opt = state.optimizer
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    lr = state.schedule(state.step)
+    for group in opt.param_groups:
+        group["lr"] = lr
+    opt.step()
+    state.step += 1
+
+
 def make_mixed_residual_step(state: CodecState, sobel: SobelFilter,
-                             weight_bound: float = 10.0):
+                             weight_bound: float = 10.0,
+                             physics: str = "sobel",
+                             fvcg_weight: float = 100.0,
+                             fvcg_flux_weight: float = 0.0,
+                             fvcg_iters: int | None = None):
     """Label-free physics step on a batch of K images (B, 1, H, W):
-    train-mode forward (BN running stats update), mixed residual, backward,
-    Adam at the scheduled lr of this update."""
-    model, opt = state.model, state.optimizer
+    train-mode forward (BN running stats update), the ``physics`` objective
+    (``_physics_loss``), backward, Adam at the scheduled lr of this
+    update."""
+    model = state.model
 
     def step(x: torch.Tensor) -> dict:
         model.train()
         output = model(x)
-        loss, (pde, diri, neum) = mixed_residual_loss(x, output, sobel,
-                                                      weight_bound)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        lr = state.schedule(state.step)
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.step()
-        state.step += 1
+        loss, (pde, diri, neum) = _physics_loss(
+            physics, x, output, sobel, weight_bound, None, fvcg_weight,
+            fvcg_flux_weight, fvcg_iters)
+        _apply_update(state, loss)
         return {"loss": loss.detach(), "loss_pde": pde.detach(),
                 "loss_dirichlet": diri.detach(),
                 "loss_neumann": neum.detach()}
@@ -80,18 +143,38 @@ def make_mixed_residual_step(state: CodecState, sobel: SobelFilter,
     return step
 
 
+def make_mle_step(state: CodecState):
+    """Supervised MSE step on (K, labels) batches
+    (train_codec_max_likelihood.py:201-213): train-mode forward, mean
+    squared error against the labels, backward, Adam."""
+    model = state.model
+
+    def step(x: torch.Tensor, y: torch.Tensor) -> dict:
+        model.train()
+        loss = torch.mean((model(x) - y) ** 2)
+        _apply_update(state, loss)
+        return {"loss": loss.detach()}
+
+    return step
+
+
 def make_eval_step(state: CodecState, sobel: SobelFilter,
-                   weight_bound: float = 10.0):
+                   weight_bound: float = 10.0, physics: str = "sobel",
+                   fvcg_weight: float = 100.0,
+                   fvcg_flux_weight: float = 0.0,
+                   fvcg_iters: int | None = None):
     """Test step (reference train_codec_mixed_residual.py:166-206): BN in
-    eval mode, physics loss, per-sample (rel_l2, sse) against the labels,
-    and the label-free flux-pressure consistency."""
+    eval mode, the ``physics`` loss, per-sample (rel_l2, sse) against the
+    labels, and the label-free flux-pressure consistency."""
     model = state.model
 
     @torch.no_grad()
     def step(x: torch.Tensor, y: torch.Tensor) -> dict:
         model.eval()
         output = model(x)
-        loss, _ = mixed_residual_loss(x, output, sobel, weight_bound)
+        loss, _ = _physics_loss(physics, x, output, sobel, weight_bound,
+                                None, fvcg_weight, fvcg_flux_weight,
+                                fvcg_iters)
         return {"loss": loss,
                 "rel_l2": relative_l2(output, y),
                 "sse": squared_error_sum(output, y),

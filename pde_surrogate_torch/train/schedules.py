@@ -15,7 +15,7 @@ import math
 import torch
 
 __all__ = ["annealing_linear", "annealing_cos", "one_cycle",
-           "one_cycle_schedule"]
+           "one_cycle_schedule", "find_lr_schedule"]
 
 
 def annealing_linear(start, end, pct):
@@ -59,5 +59,18 @@ def one_cycle_schedule(lr_max: float, total_steps: int,
     def schedule(count: int) -> float:
         pct = torch.tensor(float(count + 1), dtype=torch.float32) / total
         return float(pct_fn(pct))
+
+    return schedule
+
+
+def find_lr_schedule(init_value: float = 1e-8, final_value: float = 10.0,
+                     num_steps: int = 100):
+    """step -> lr of the exponential LR-range test (reference
+    utils/practices.py:45-83): init_value at step 0, final_value at
+    ``num_steps``."""
+    mult = (final_value / init_value) ** (1.0 / num_steps)
+
+    def schedule(count: int) -> float:
+        return init_value * mult ** count
 
     return schedule

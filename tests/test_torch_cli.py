@@ -1,9 +1,12 @@
 """The port's entry points end to end on the CPU, and its import hygiene.
 
 make_dataset -> train_codec_mixed_residual -> predict_codec at a tiny size
-(imsize 16, blocks 1,2,1, growth 4), the label attach path of
-ensure_dataset, the options that are not ported yet, and a check that no
-module of the port (nor chip_smoke.py) imports JAX or the JAX package.
+(imsize 16, blocks 1,2,1, growth 4), the fvcg objective, the supervised
+(MLE) driver with its train labels attached in place, --init-from,
+--find-lr, the label attach path of ensure_dataset, the options that are
+not ported yet, the run-dir names against the JAX parsers, and a check
+that no module of the port (nor chip_smoke.py) imports JAX or the JAX
+package.
 """
 
 import ast
@@ -17,8 +20,10 @@ import numpy as np
 import pytest
 import torch
 
+from pde_surrogate_torch.cli import _codec_common
 from pde_surrogate_torch.cli import make_dataset as t_make
 from pde_surrogate_torch.cli import predict_codec as t_predict
+from pde_surrogate_torch.cli import train_codec_max_likelihood as t_mle
 from pde_surrogate_torch.cli import train_codec_mixed_residual as t_train
 from pde_surrogate_torch.cli._codec_common import ensure_dataset
 from pde_surrogate_torch.data import hdf5 as th5
@@ -29,6 +34,19 @@ torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TINY = ["--imsize", "16", "--blocks", "1,2,1", "--growth-rate", "4",
         "--init-features", "8", "--no-plot", "--device", "cpu"]
+SPLIT = ["--ntrain", "32", "--ntest", "16", "--batch-size", "16",
+         "--test-batch-size", "16"]
+
+
+def _tiny_run(main, exp, data, *extra, imsize="16"):
+    """A tiny run of a codec CLI, alone in the exp dir ``exp``; returns its
+    result and its run dir."""
+    argv = TINY + SPLIT + ["--data-dir", str(data), "--exp-dir", str(exp),
+                           "--ckpt-freq", "1", *extra]
+    argv[argv.index("--imsize") + 1] = imsize
+    out = main(argv)
+    (run,) = [p.parent for p in exp.rglob("args.txt")]
+    return out, run
 
 
 def test_make_train_predict_chain(tmp_path):
@@ -116,14 +134,173 @@ def test_ensure_dataset_attaches_labels_and_guards(tmp_path):
                        device="cpu")
 
 
-@pytest.mark.parametrize("flag", [
-    ["--physics", "fvcg"], ["--dtype", "bf16"], ["--concat-free"],
-    ["--n-devices", "2"], ["--find-lr"], ["--init-from", "x"],
-    ["--profile-epoch", "1"]])
-def test_unported_options_raise(tmp_path, flag):
+@pytest.mark.parametrize("main,flag", [
+    (t_train.main, ["--dtype", "bf16"]), (t_train.main, ["--concat-free"]),
+    (t_train.main, ["--n-devices", "2"]),
+    (t_train.main, ["--profile-epoch", "1"]),
+    (t_mle.main, ["--dtype", "bf16"]), (t_mle.main, ["--n-devices", "2"])],
+    ids=["bf16", "concat-free", "n-devices", "profile-epoch", "mle-bf16",
+         "mle-n-devices"])
+def test_unported_options_raise(tmp_path, main, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_train.main(TINY + ["--exp-dir", str(tmp_path)] + flag)
+        main(TINY + ["--exp-dir", str(tmp_path)] + flag)
     assert not (tmp_path / "codec").exists()
+
+
+def _val_file(data):
+    return str(data / "16x16" / "kle512_lhs1000_val.hdf5")
+
+
+def _predict(run, val):
+    pred, rel_l2, r2 = t_predict.main(["--device", "cpu", "--run-dir",
+                                       str(run), "--input", val])
+    assert pred.shape == (16, 3, 16, 16) and np.isfinite(pred).all()
+    assert np.isfinite(rel_l2).all() and np.isfinite(r2).all()
+
+
+def test_fvcg_train_predict_chain(tmp_path):
+    data = tmp_path / "d"
+    (state, logger), run = _tiny_run(t_train.main, tmp_path / "exp", data,
+                                     "--physics", "fvcg", "--epochs", "2")
+    assert run.name == ("grf_kle512_ntrain32_run1_bs16_lr0.001_epochs2_"
+                        "im16_fvcg")
+    assert state.step == 4
+    assert np.isfinite(logger["loss_train"]).all()
+    assert np.isfinite(logger["r2_test"]).all()
+    _predict(run, _val_file(data))
+
+
+def test_mle_attaches_train_labels_in_place(tmp_path):
+    """The supervised driver on an inputs-only train file (as label-free
+    training leaves it): the solver attaches the labels in place, the
+    inputs stay, and the run predicts."""
+    data = tmp_path / "d"
+    train = th5.dataset_path(str(data), 16, "kle512_lhs10000_train")
+    ensure_dataset(train, "grf", 32, 16, 512, seed=10_512, with_output=False,
+                   device="cpu")
+    x0, _, _ = th5.load_data(train, 32)
+    (state, logger), run = _tiny_run(t_mle.main, tmp_path / "exp", data,
+                                     "--epochs", "2")
+    assert run.parent.name == "max_likelihood"
+    assert run.name == "grf_kle512_ntrain32_run1_bs16_lr0.001_epochs2_im16"
+    x, y, _ = th5.load_data(train, 32, only_input=False)
+    np.testing.assert_array_equal(x, x0)
+    np.testing.assert_array_equal(
+        y, solve_darcy_batch_fast(torch.from_numpy(x[:, 0])).numpy())
+    assert state.step == 4
+    assert np.isfinite(logger["loss_train"]).all()
+    assert logger["loss_train"][-1] < logger["loss_train"][0]
+    _predict(run, _val_file(data))
+
+
+def _first_step_spy(monkeypatch):
+    """Record the weights, the step and the optimizer state of the state a
+    training run takes its first step from."""
+    seen = {}
+    make = _codec_common.make_mixed_residual_step
+
+    def spy(state, *a, **k):
+        step = make(state, *a, **k)
+
+        def first(*batch):
+            if not seen:
+                seen.update(step=state.step,
+                            opt_state=len(state.optimizer.state),
+                            weights={k: v.clone() for k, v in
+                                     state.model.state_dict().items()})
+            return step(*batch)
+        return first
+
+    monkeypatch.setattr(_codec_common, "make_mixed_residual_step", spy)
+    return seen
+
+
+def _weights(run, epoch):
+    return torch.load(run / "checkpoints" / f"model_epoch{epoch}.pt",
+                      weights_only=True)["model"]
+
+
+@pytest.mark.parametrize("imsize", ["16", "32"])
+def test_init_from_warm_starts(tmp_path, monkeypatch, imsize):
+    """--init-from: the first step starts from the source checkpoint's
+    weights and BN stats, with a fresh optimizer at step 0, at the source's
+    imsize or another (16^2 -> 32^2)."""
+    _, src = _tiny_run(t_train.main, tmp_path / "src", tmp_path / "d",
+                       "--epochs", "1")
+    seen = _first_step_spy(monkeypatch)
+    (state, _), _ = _tiny_run(t_train.main, tmp_path / "exp", tmp_path / "d",
+                              "--epochs", "1", "--init-from", f"{src}:1",
+                              imsize=imsize)
+    assert seen["step"] == 0 and seen["opt_state"] == 0
+    want = _weights(src, 1)
+    assert seen["weights"].keys() == want.keys()
+    for k, v in want.items():
+        assert torch.equal(seen["weights"][k], v), k
+    assert state.step == 2
+
+
+def test_init_from_with_ckpt_epoch_resumes(tmp_path, monkeypatch, capsys):
+    """With --ckpt-epoch the resume wins: the run continues from its own
+    checkpoint, and --init-from is not applied (one line says so)."""
+    _, src = _tiny_run(t_train.main, tmp_path / "src", tmp_path / "d",
+                       "--epochs", "1")
+    _, run = _tiny_run(t_train.main, tmp_path / "exp", tmp_path / "d",
+                       "--epochs", "2")
+    seen = _first_step_spy(monkeypatch)
+    (state, logger), _ = _tiny_run(t_train.main, tmp_path / "exp",
+                                   tmp_path / "d", "--epochs", "2",
+                                   "--ckpt-epoch", "1", "--init-from",
+                                   str(src))
+    assert "not applied" in capsys.readouterr().out
+    assert seen["step"] == 2 and seen["opt_state"] > 0
+    for k, v in _weights(run, 1).items():
+        assert torch.equal(seen["weights"][k], v), k
+    assert state.step == 4 and len(logger["loss_train"]) == 2
+
+
+@pytest.mark.parametrize("main", [t_train.main, t_mle.main],
+                         ids=["mixed_residual", "mle"])
+def test_find_lr_writes_finite_table(tmp_path, main):
+    """--find-lr: one epoch of 8 steps with the lr growing from 1e-8;
+    find_lr.txt holds (log10 lr, smoothed loss) rows, all finite."""
+    _, run = _tiny_run(main, tmp_path / "exp", tmp_path / "d", "--find-lr",
+                       "--ntrain", "64", "--batch-size", "8")
+    table = np.loadtxt(run / "find_lr.txt", ndmin=2)
+    assert table.shape[1] == 2 and 1 <= len(table) <= 8
+    assert np.isfinite(table).all()
+    np.testing.assert_allclose(table[0, 0], -8.0)
+    assert (np.diff(table[:, 0]) > 0).all()
+
+
+@pytest.mark.parametrize("kind,argv", [
+    ("mixed_residual", ["--physics", "sobel_fvcg", "--fvcg-weight", "50",
+                        "--fvcg-flux-weight", "1", "--fvcg-iters", "32",
+                        "--imsize", "32"]),
+    ("max_likelihood", ["--imsize", "32", "--kle", "100", "--upsample",
+                        "bilinear", "--epochs", "50", "--no-shared-stats"])])
+def test_run_dir_names_match_jax(tmp_path, kind, argv):
+    import importlib
+    j_main = importlib.import_module(
+        f"pde_surrogate_tpu.cli.train_codec_{kind}")
+    t_main = importlib.import_module(
+        f"pde_surrogate_torch.cli.train_codec_{kind}")
+    j_args = j_main.Parser().parse(argv + ["--exp-dir", str(tmp_path / "j")])
+    t_args = t_main.Parser().parse(argv + ["--exp-dir", str(tmp_path / "t"),
+                                           "--no-plot"])
+    assert (os.path.relpath(t_args.run_dir, tmp_path / "t")
+            == os.path.relpath(j_args.run_dir, tmp_path / "j"))
+
+
+def test_mle_driver_defaults_to_cuda(tmp_path):
+    """The supervised driver runs on CUDA unless told otherwise and never
+    falls back to the CPU."""
+    assert t_mle.Parser().parse_args([]).device == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    argv = [a for a in TINY if a not in ("--device", "cpu")]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_mle.main(argv + SPLIT + ["--exp-dir", str(tmp_path), "--data-dir",
+                                   str(tmp_path / "d")])
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -74,3 +74,38 @@ def test_batchnorm_running_var_is_biased_on_gpu(cuda):
     bn(x)
     want = 0.9 + 0.1 * x.var(dim=(0, 2, 3), unbiased=False)
     torch.testing.assert_close(bn.running_var, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["fv", "fvcg", "sobel_fvcg"])
+def test_fvcg_losses_on_gpu_match_cpu(cuda, name):
+    """The FV objectives and the in-loss PCG (64 iterations) at 64^2, B=4,
+    on the card against the CPU: loss 1e-5 relative; the gradient with
+    respect to the output within 1e-5 * max|g| of the CPU's, or within
+    three times the CPU f32 gradient's own distance from float64, whichever
+    is larger (the CG's reverse mode amplifies f32 rounding)."""
+    from pde_surrogate_torch.ops import darcy as td
+    from pde_surrogate_torch.ops.filters import SobelFilter
+    from pde_surrogate_torch.train.codec_trainer import _physics_loss
+    n = 64
+    K = torch.from_numpy(sample_kle(4, n, 512, rng=5))[:, None]
+    out = torch.from_numpy(np.random.default_rng(5).normal(
+        0, 1, (4, 3, n, n)).astype(np.float32))
+    fns = {"fv": lambda k, o: td.fv_mixed_residual_loss(k, o)[0],
+           "fvcg": lambda k, o: td.fv_cg_error_loss(k, o, 10.0, 64)[0],
+           "sobel_fvcg": lambda k, o: _physics_loss(
+               "sobel_fvcg", k, o, SobelFilter(n), 10.0, None, 100.0, 1.0,
+               64)[0]}
+
+    def run(device, dtype=torch.float32):
+        o = out.to(device, dtype).detach().requires_grad_(True)
+        loss = fns[name](K.to(device, dtype), o)
+        loss.backward()
+        return float(loss), o.grad.double().cpu()
+
+    l_gpu, g_gpu = run(cuda)
+    l_cpu, g_cpu = run("cpu")
+    _, g64 = run("cpu", torch.float64)
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    bound = max(1e-5 * float(g_cpu.abs().max()),
+                3 * float((g_cpu - g64).abs().max()))
+    assert float((g_gpu - g_cpu).abs().max()) <= bound
