@@ -21,8 +21,9 @@
    kernel solves; predict_codec; fvcg and sobel_fvcg training (2 epochs
    each) on that data; supervised (MLE) training, whose train labels
    the kernel attaches in place; predict_codec on it; a warm start from
-   the fvcg run (--init-from, 2 epochs at lr 3e-4); the LR-range test
-   (--find-lr).
+   the fvcg run (--init-from, 2 epochs at lr 3e-4; the CLI's warm start
+   loads the source checkpoint into a fresh model exactly); the LR-range
+   test (--find-lr).
 7. ms per training step by CUDA events and peak memory for each objective,
    with and without the in-loss CG, and the 128^2 fvcg recipe; kernel
    launches and device busy time of one step from torch.profiler.
@@ -395,42 +396,34 @@ class MainPath:
               "MLE did not attach the train labels")
         self.predict("predict mle", mle_run)
 
-        seen = {}
-        make_step = _codec_common.make_mixed_residual_step
-
-        def spy(state, *a, **k):
-            step = make_step(state, *a, **k)
-
-            def first(*batch):
-                if not seen:
-                    seen.update(step=state.step, opt=len(state.optimizer.state),
-                                weights={n: v.detach().clone() for n, v in
-                                         state.model.state_dict().items()})
-                return step(*batch)
-            return first
-
-        _codec_common.make_mixed_residual_step = spy
-        try:
-            # 2 epochs at a fine-tuning lr: the warm start's first batch
-            # lies below the mean loss of its first epoch, which a fresh
-            # Adam at the default lr raises further
-            self.train("train fvcg --init-from", train, "--epochs", "2",
-                       "--physics", "fvcg", "--lr", "3e-4", "--init-from",
-                       f"{fvcg_run}:2", exp="warm")
-        finally:
-            _codec_common.make_mixed_residual_step = make_step
+        # 2 epochs at a fine-tuning lr: the warm start's first batch lies
+        # below the mean loss of its first epoch, which a fresh Adam at the
+        # default lr raises further
+        warm, _ = self.train("train fvcg --init-from", train, "--epochs", "2",
+                             "--physics", "fvcg", "--lr", "3e-4",
+                             "--init-from", f"{fvcg_run}:2", exp="warm")
+        # the warm start the CLI applies before its first step, into a
+        # fresh model of the same width
         src = torch.load(os.path.join(fvcg_run, "checkpoints",
                                       "model_epoch2.pt"),
                          map_location="cuda", weights_only=True)["model"]
-        same = (seen["weights"].keys() == src.keys()
-                and all(torch.equal(seen["weights"][n], v)
-                        for n, v in src.items()))
-        log(f"[main] --init-from: first step from step {seen['step']}, "
-            f"{seen['opt']} optimizer states, weights equal to the source's "
-            f"epoch 2: {same}")
-        check(same and seen["step"] == 0 and seen["opt"] == 0,
-              "--init-from did not start from the source's weights with a "
-              "fresh optimizer")
+        model = _codec_common._build_model(train.Parser().parse_args(
+            self.WIDTH), torch.device("cuda"))
+        fresh = {n: v.clone() for n, v in model.state_dict().items()}
+        _codec_common._warm_start(model, f"{fvcg_run}:2")
+        got = model.state_dict()
+        same = got.keys() == src.keys() and all(
+            torch.equal(got[n], v) for n, v in src.items())
+        moved = any(not torch.equal(fresh[n], src[n])
+                    for n in src if src[n].is_floating_point())
+        steps = 2 * (512 // 32)
+        log(f"[main] --init-from: warm-started weights equal to the source's "
+            f"epoch 2: {same} (a fresh model's differ: {moved}); the warm "
+            f"run took {warm.step} optimizer steps from step 0 "
+            f"(expected {steps})")
+        check(same and moved, "--init-from did not load the source's weights")
+        check(warm.step == steps, "--init-from did not start a fresh "
+                                  "optimizer and schedule")
 
         exp = os.path.join(self.tmp, "find_lr")
         self.drive("find-lr", lambda: train.main(
