@@ -13,17 +13,23 @@
    events, K1 also by batch size at 64^2 and at 128^2 and 256^2; compute
    its bound from this run's shapes.
 5. The finite-volume objectives and their in-loss PCG on the card against
-   the CPU at 64^2, B=32, 64 CG iterations.
-6. Every path at full width, DenseED [6,8,6]/16/48 at 64^2, each driven
-   through its CLI with the kernel launch counts zeroed just before and
-   read just after: make_dataset (labels by the kernel); label-free
+   the CPU at 64^2, B=32, 64 CG iterations (``[fvcg]``); the FC solver's
+   loss and parameter gradient at full width (``[fc]``); the FV-Newton
+   oracle of the nonlinear law at 64^2 with its wall time (``[nonlinear]``).
+6. Every path at full width, each driven through its CLI with the kernel
+   launch counts zeroed just before and read just after: make_dataset
+   (labels by the kernel); DenseED [6,8,6]/16/48 at 64^2: label-free
    training (Sobel, 2 epochs) in an empty data dir, whose val labels the
    kernel solves; predict_codec; fvcg and sobel_fvcg training (2 epochs
    each) on that data; supervised (MLE) training, whose train labels
    the kernel attaches in place; predict_codec on it; a warm start from
    the fvcg run (--init-from, 2 epochs at lr 3e-4; the CLI's warm start
    loads the source checkpoint into a fresh model exactly); the LR-range
-   test (--find-lr).
+   test (--find-lr); then the single-instance solvers at their default
+   widths on kle512 test field 8 (the kernel labels the 1000-field test
+   set): the FC solver (CPPN 512x8), the conv-decoder solver and the
+   conv-decoder solver with the nonlinear law (its FV-Newton oracle), each
+   with a 300-step Adam warmup and 3 zoom L-BFGS epochs.
 7. ms per training step by CUDA events and peak memory for each objective,
    with and without the in-loss CG, and the 128^2 fvcg recipe; kernel
    launches and device busy time of one step from torch.profiler.
@@ -43,6 +49,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -245,7 +252,6 @@ def phase_fvcg_parity():
     output within 1e-5 * max|g| of the CPU's, or three times the CPU f32
     gradient's own distance from float64 where that is larger (the CG's
     reverse mode amplifies f32 rounding)."""
-    import numpy as np
     from pde_surrogate_torch.data.grf import sample_kle
     from pde_surrogate_torch.ops import darcy as td
     from pde_surrogate_torch.ops.filters import SobelFilter
@@ -286,6 +292,103 @@ def phase_fvcg_parity():
         check(gerr <= bound, f"{name}: card gradient off the CPU's by {gerr}")
 
 
+def fc_loss_fn(device, dtype, n: int = 64, width: int = 512,
+               depth: int = 8):
+    """The FC solver's objective at its default width: a CPPN width x depth
+    (seeded weights) on the n^2 on-grid collocation points of a kle512
+    field, 512 Dirichlet and 2n Neumann points.  Returns (loss of the flat
+    parameter vector, that vector)."""
+    from pde_surrogate_torch.data.grf import sample_kle
+    from pde_surrogate_torch.models.cppn import CPPN
+    from pde_surrogate_torch.ops import darcy as td
+    from pde_surrogate_torch.ops.sampling import SampleSpatial2d
+    from pde_surrogate_torch.train.lbfgs import FlatParams
+    torch.manual_seed(1)
+    model = CPPN(2, 3, width, depth).to(device, dtype)
+    flat = FlatParams(model)
+    s = SampleSpatial2d(n, n, rng=1)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
+    x = t(s.colloc(True))
+    dirichlet = t(np.concatenate([s.left(False, 256), s.right(False, 256)]))
+    y_d = torch.cat([torch.ones(256, 1), torch.zeros(256, 1)]).to(device,
+                                                                 dtype)
+    neumann = t(np.concatenate([s.top(True), s.bottom(True)]))
+    K = t(sample_kle(1, n, 512, rng=8)[0].reshape(-1, 1))
+
+    def loss(v):
+        p = flat.unflatten(v)
+        net = (model, p)
+        diri = torch.mean((torch.func.functional_call(
+            model, p, (dirichlet,))[:, 0:1] - y_d) ** 2)
+        return (td.mixed_residual_fc(net, x, K)
+                + 10.0 * (diri + td.neumann_boundary_mixed(net, neumann)))
+    return loss, flat.vector()
+
+
+def phase_fc_parity():
+    """The FC solver's loss and its parameter gradient (through the
+    per-point Jacobians) at full width on the card against the CPU: loss
+    within 1e-5 relative; gradient within 1e-5 * max|g| of the CPU's, or
+    three times the CPU f32 gradient's own distance from float64."""
+    from pde_surrogate_torch.train.lbfgs import value_and_grad
+
+    def run(device, dtype=torch.float32):
+        loss, v = fc_loss_fn(device, dtype)
+        value, grad = value_and_grad(loss, v)
+        return float(value), grad.double().cpu()
+    l_gpu, g_gpu = run("cuda")
+    l_cpu, g_cpu = run("cpu")
+    _, g64 = run("cpu", torch.float64)
+    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    gmax = float(g_cpu.abs().max())
+    gerr = float((g_gpu - g_cpu).abs().max()) / gmax
+    cpu_err = float((g_cpu - g64).abs().max()) / gmax
+    bound = max(1e-5, 3 * cpu_err)
+    log(f"[fc] CPPN 512x8 ({g_gpu.numel()} params), 4096 + 512 + 128 points: "
+        f"loss {l_gpu:.6e}, rel to CPU {rel:.2e} (1e-5); grad max|card-CPU| "
+        f"{gerr:.2e} of max|g| ({bound:.2e}; CPU f32 vs f64 {cpu_err:.2e})")
+    check(np.isfinite(l_gpu) and bool(torch.isfinite(g_gpu).all()),
+          "FC loss or gradient not finite on the card")
+    check(rel <= 1e-5, f"FC loss: card off the CPU's by {rel}")
+    check(gerr <= bound, f"FC gradient: card off the CPU's by {gerr}")
+
+
+def phase_nonlinear(n: int = 64):
+    """The FV-Newton oracle (alpha1 = alpha2 = 1, 12 Newton steps) on one
+    kle512 field at n^2: card against CPU within 1e-5 of max|x| or three
+    times the CPU f32 result's distance from float64; the boundary
+    conditions; the wall time on the card and the CPU."""
+    from pde_surrogate_torch.data.grf import sample_kle
+    from pde_surrogate_torch.solvers.fd_darcy import solve_nonlinear_darcy
+    K = torch.from_numpy(sample_kle(1, n, 512, rng=8)[0])
+
+    def timed(k):
+        if k.is_cuda:
+            torch.cuda.synchronize()
+        tic = time.perf_counter()
+        out = solve_nonlinear_darcy(k).cpu().double()
+        return out, time.perf_counter() - tic
+    solve_nonlinear_darcy(K[:8, :8].cuda())            # first-use set-up
+    on_gpu, s_gpu = timed(K.cuda())
+    on_cpu, s_cpu = timed(K)
+    f64, _ = timed(K.double())
+    scale = float(f64.abs().max())
+    err = float((on_gpu - on_cpu).abs().max()) / scale
+    own = float((on_cpu - f64).abs().max()) / scale
+    bound = max(1e-5, 3 * own)
+    bc = max(float((on_gpu[0, :, 0] - 1).abs().max()),
+             float(on_gpu[0, :, -1].abs().max()),
+             float(on_gpu[2, [0, -1]].abs().max()))
+    log(f"[nonlinear] {n}^2: card {s_gpu:.3f} s, CPU {s_cpu:.3f} s; "
+        f"max|card-CPU| {err:.2e} of max|x| ({bound:.2e}; CPU f32 vs f64 "
+        f"{own:.2e}); boundary conditions max error {bc:.1e} (1e-6)")
+    check(bool(torch.isfinite(on_gpu).all()), "nonlinear solve not finite")
+    check(err <= bound, f"nonlinear solve: card off the CPU's by {err}")
+    check(bc <= 1e-6, "nonlinear solve violates its boundary conditions")
+
+
 class MainPath:
     """Drives each path through the CLIs in one temporary tree and counts
     K1's launches per path (zeroed just before, read just after)."""
@@ -318,7 +421,6 @@ class MainPath:
               check_descent=True):
         """One training CLI run in its own exp dir; checks its losses,
         eval metrics and last checkpoint; returns (state, run dir)."""
-        import numpy as np
         exp_dir = os.path.join(self.tmp, exp)
         state, logger = self.drive(label, lambda: module.main(
             self.WIDTH + ["--data-dir", self.data2, "--exp-dir", exp_dir,
@@ -346,7 +448,6 @@ class MainPath:
         return state, run_dir
 
     def predict(self, label: str, run_dir: str):
-        import numpy as np
         from pde_surrogate_torch.cli import predict_codec
         from pde_surrogate_torch.data.hdf5 import dataset_shapes
         val = os.path.join(self.data2, "64x64", "kle512_lhs1000_val.hdf5")
@@ -364,7 +465,6 @@ class MainPath:
 
     def run(self) -> int:
         """Every path; returns K1's launches summed over them."""
-        import numpy as np
         from pde_surrogate_torch.cli import _codec_common, make_dataset
         from pde_surrogate_torch.cli import train_codec_max_likelihood as mle
         from pde_surrogate_torch.cli import \
@@ -436,9 +536,45 @@ class MainPath:
             f"{table[0, 1]:.4f}..{table[-1, 1]:.4f}")
         check(len(table) > 0 and np.isfinite(table).all(),
               "find_lr.txt has no rows or non-finite ones")
+        data3 = os.path.join(self.tmp, "data3")
+        self.solve("solve_fc", "solve_fc_mixed_residual", data3,
+                   needs_k1=True)
+        self.solve("solve_conv", "solve_conv_mixed_residual", data3)
+        self.solve("solve_conv --nonlinear", "solve_conv_mixed_residual",
+                   data3, "--nonlinear")
         total = sum(self.launches.values())
         log(f"[main] K1 launches by path: {self.launches}; total {total}")
         return total
+
+    def solve(self, label: str, module: str, data_dir: str, *argv,
+              needs_k1=False):
+        """One single-instance solver CLI at its default widths on kle512
+        test field 8: a 300-step Adam warmup, then 3 zoom L-BFGS epochs.
+        Checks the losses (finite; L-BFGS ends below the warmup) and the
+        prediction against the reference solution."""
+        import importlib
+        cli = importlib.import_module(f"pde_surrogate_torch.cli.{module}")
+        exp_dir = os.path.join(self.tmp, "solver_" + label.replace(" ", ""))
+        _, logger, target = self.drive(label, lambda: cli.main([
+            "--device", "cuda", "--no-plot", "--data-dir", data_dir,
+            "--exp-dir", exp_dir, "--adam-warmup", "300", "--epochs", "3",
+            "--test-freq", "3", "--ckpt-freq", "3", *argv]), needs_k1)
+        losses = logger["loss"]
+        epoch, rel = logger["rel_l2"][-1]
+        log(f"[main] {label}: Adam {logger['adam_ms_per_step']:.3f} ms/step "
+            f"(loss {logger['adam_loss']:.6f}); L-BFGS epochs "
+            f"{[round(t, 3) for t in logger['epoch_seconds']]} s, loss "
+            f"evaluations {logger['evals']}, losses "
+            f"{[round(v, 6) for v in losses]}; rel-L2 (u, s1, s2) at epoch "
+            f"{epoch}: {[round(r, 4) for r in rel]}")
+        (pred,) = [os.path.join(r, "epoch3.npy")
+                   for r, _, files in os.walk(exp_dir) if "epoch3.npy" in files]
+        check(np.load(pred).shape == target.shape == (3, 64, 64),
+              f"{label}: prediction or reference shape")
+        check(np.isfinite(losses).all() and np.isfinite(rel).all(),
+              f"{label}: losses or rel-L2 not finite")
+        check(losses[-1] < logger["adam_loss"],
+              f"{label}: L-BFGS did not go below the Adam warmup's loss")
 
 
 STEP_CASES = [
@@ -459,7 +595,6 @@ STEP_CASES = [
 def _step_fn(imsize, blocks, kind, physics_kw):
     """A training step of DenseED blocks/16/48 on a batch of 32 kle512
     fields, f32 with TF32 off."""
-    import numpy as np
     from pde_surrogate_torch.data.grf import sample_kle
     from pde_surrogate_torch.models.codec import DenseED
     from pde_surrogate_torch.ops.filters import SobelFilter
@@ -502,13 +637,65 @@ def phase_step_times() -> dict:
     return out
 
 
+def conv_solver_loss_fn(device, n: int = 64):
+    """The conv solver's objective at its default width: Decoder [8,6]/16/48
+    (seeded weights, train-mode BatchNorm) on a fixed (1, 1, n/4, n/4)
+    latent, the Sobel mixed residual of a kle512 field.  Returns (loss of
+    the flat parameter vector, that vector)."""
+    from pde_surrogate_torch.data.grf import sample_kle
+    from pde_surrogate_torch.models.codec import Decoder
+    from pde_surrogate_torch.ops.darcy import mixed_residual_loss
+    from pde_surrogate_torch.ops.filters import SobelFilter
+    from pde_surrogate_torch.train.lbfgs import FlatParams
+    torch.manual_seed(1)
+    model = Decoder(1, 3, [8, 6]).to(device).train()
+    flat = FlatParams(model)
+    latent = 0.5 * torch.randn(1, 1, n // 4, n // 4, device=device)
+    K = torch.from_numpy(sample_kle(1, n, 512, rng=8))[:, None].to(device)
+    sobel = SobelFilter(n)
+
+    def loss(v):
+        out = torch.func.functional_call(model, flat.unflatten(v), (latent,))
+        return mixed_residual_loss(K, out, sobel)[0]
+    return loss, flat.vector()
+
+
+def _adam_step(loss, v):
+    """One Adam step (lr 2e-3) of ``loss`` on the flat vector ``v``, as the
+    solvers' warmup takes it."""
+    x = v.clone().requires_grad_(True)
+    opt = torch.optim.Adam([x], lr=2e-3)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss(x).backward()
+        opt.step()
+    return step
+
+
+def solver_steps():
+    return [("solve_fc Adam step", _adam_step(*fc_loss_fn("cuda",
+                                                          torch.float32))),
+            ("solve_conv Adam step", _adam_step(*conv_solver_loss_fn("cuda")))]
+
+
+def phase_solver_step_times():
+    """ms per Adam step of both solvers at their default widths, by CUDA
+    events (20 steps after 5 warm-up steps)."""
+    for label, fn in solver_steps():
+        ms = cuda_ms(fn, reps=20, warmup=5)
+        log(f"[step] {label}: {ms:.3f} ms/step")
+
+
 def phase_step_profile():
-    """One step of sobel and of fvcg (n_cg=64) at 64^2 under
-    torch.profiler: device kernels launched and their summed time against
-    the step's wall time (CUDA events)."""
+    """One step of sobel and of fvcg (n_cg=64) at 64^2, and one Adam step
+    of each solver, under torch.profiler: device kernels launched and their
+    summed time against the step's wall time (CUDA events)."""
     from torch.profiler import ProfilerActivity, profile
-    for label, imsize, blocks, kind, physics_kw in STEP_CASES[:2]:
-        fn = _step_fn(imsize, blocks, kind, physics_kw)
+    cases = [(c[0], lambda c=c: _step_fn(*c[1:])) for c in STEP_CASES[:2]]
+    cases += [(label, lambda f=fn: f) for label, fn in solver_steps()]
+    for label, make in cases:
+        fn = make()
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
@@ -547,12 +734,15 @@ def main() -> int:
     phase_bn_parity()
     times = phase_cg_times()
     phase_fvcg_parity()
+    phase_fc_parity()
+    phase_nonlinear()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         launches = MainPath(tmp).run()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_step_times()
+    phase_solver_step_times()
     phase_step_profile()
 
     kernels = [{

@@ -35,7 +35,7 @@ from ..utils.metrics import r2_score
 from .make_dataset import solve_labels
 
 __all__ = ["ensure_dataset", "resolve_dataset_files", "reject_unported",
-           "run_codec_training", "run_find_lr"]
+           "run_codec_training", "run_find_lr", "save_stats"]
 
 
 def _generate_inputs(data: str, n: int, imsize: int, kle: int, seed: int):
@@ -207,7 +207,7 @@ def _warm_start(model, init_from: str) -> None:
     print(f"Warm-started weights from {src_ckpt} epoch {ep}")
 
 
-def _save_stats(save_dir: str, logger: dict, *metrics):
+def save_stats(save_dir: str, logger: dict, *metrics):
     """Metric curves as {metric}.txt (the .pdf curves come with the plots)."""
     os.makedirs(save_dir, exist_ok=True)
     for metric in metrics:
@@ -343,7 +343,7 @@ def run_codec_training(args, loss_kind: str):
             restore_checkpoint(args.ckpt_dir, sel_epoch, sel_state)
             print(f"Metrics at the selected checkpoint (epoch {sel_epoch}):")
             test(sel_epoch, sel_state, record=False)
-    _save_stats(args.train_dir, logger, "loss_train", "loss_test",
+    save_stats(args.train_dir, logger, "loss_train", "loss_test",
                 "nrmse_test", "r2_test", "consistency_test")
     args.training_time = training_time
     args.n_params, args.n_layers = n_params, n_layers

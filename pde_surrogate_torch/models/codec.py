@@ -1,6 +1,8 @@
-"""Dense convolutional encoder-decoder (DenseED), NCHW.
+"""Dense convolutional encoder-decoder (DenseED) and the solver's Decoder,
+NCHW.
 
-Counterpart of pde_surrogate_tpu/models/codec.py (DenseED and its parts),
+Counterpart of pde_surrogate_tpu/models/codec.py (DenseED, Decoder and
+their parts),
 with the reference's torch module names (``features.In_conv``,
 ``features.EncBlock1.denselayer1.norm1``, ..., ``features.LastTransUp.conv3``)
 so that reference ``.pth`` state dicts load by name.
@@ -25,8 +27,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-__all__ = ["DenseED", "BatchNorm2d", "module_size", "upsample_nearest",
-           "upsample_bilinear"]
+__all__ = ["DenseED", "Decoder", "BatchNorm2d", "module_size",
+           "upsample_nearest", "upsample_bilinear"]
 
 
 def module_size(model: nn.Module) -> tuple[int, int]:
@@ -178,6 +180,27 @@ class LastDecoding(nn.Module):
         return self.conv3(F.relu(self.norm3(x)))
 
 
+def _add_decoder(mods: OrderedDict, nf: int, blocks: Sequence[int],
+                 out_channels: int, growth_rate: int, drop_rate: float,
+                 upsample: str) -> None:
+    """Append the decoding half to ``mods``: dense blocks (``DecBlock{i}``)
+    with an up transition between each pair (``TransUp{i}``), then the
+    decoding head (``LastTransUp``); ``nf`` channels come in."""
+    if upsample not in _UPSAMPLE:
+        raise ValueError(f"unknown upsample mode: {upsample}")
+    for i, num_layers in enumerate(blocks):
+        mods[f"DecBlock{i + 1}"] = DenseBlock(num_layers, nf, growth_rate,
+                                              drop_rate)
+        nf += num_layers * growth_rate
+        if i < len(blocks) - 1:
+            mods[f"TransUp{i + 1}"] = Transition(
+                nf, nf // 2, down=False, drop_rate=drop_rate,
+                upsample=upsample)
+            nf //= 2
+    mods["LastTransUp"] = LastDecoding(nf, out_channels, drop_rate=drop_rate,
+                                       upsample=upsample)
+
+
 class DenseED(nn.Module):
     """Dense convolutional encoder-decoder (reference models/codec.py:210-318).
 
@@ -196,8 +219,6 @@ class DenseED(nn.Module):
         if len(blocks) > 1 and len(blocks) % 2 == 0:
             raise ValueError(
                 f"length of blocks must be an odd number, but got {len(blocks)}")
-        if upsample not in _UPSAMPLE:
-            raise ValueError(f"unknown upsample mode: {upsample}")
         enc_blocks = blocks[: len(blocks) // 2]
         dec_blocks = blocks[len(blocks) // 2:]
         pad = 3 if imsize % 2 == 0 else 2
@@ -211,18 +232,34 @@ class DenseED(nn.Module):
             mods[f"TransDown{i + 1}"] = Transition(nf, nf // 2, down=True,
                                                    drop_rate=drop_rate)
             nf //= 2
-        for i, num_layers in enumerate(dec_blocks):
-            mods[f"DecBlock{i + 1}"] = DenseBlock(num_layers, nf, growth_rate,
-                                                  drop_rate)
-            nf += num_layers * growth_rate
-            if i < len(dec_blocks) - 1:
-                mods[f"TransUp{i + 1}"] = Transition(
-                    nf, nf // 2, down=False, drop_rate=drop_rate,
-                    upsample=upsample)
-                nf //= 2
-        mods["LastTransUp"] = LastDecoding(nf, out_channels,
-                                           drop_rate=drop_rate,
-                                           upsample=upsample)
+        _add_decoder(mods, nf, dec_blocks, out_channels, growth_rate,
+                     drop_rate, upsample)
+        self.features = nn.Sequential(mods)
+
+    def forward(self, x):
+        return self.features(x)
+
+
+class Decoder(nn.Module):
+    """Decoder-only generator for solving one instance (reference
+    models/codec.py:321-370, JAX models/codec.py:589-629).
+
+    A fixed latent (B, dim_latent, h, w) goes through a 3x3 conv
+    (``features.Conv0``), dense blocks with an up transition between each
+    pair (``DecBlock{i}``, ``TransUp{i}``) and the decoding head
+    (``LastTransUp``) to (B, out_channels, 4h, 4w) for two blocks; only the
+    weights are optimized.
+    """
+
+    def __init__(self, dim_latent: int, out_channels: int,
+                 blocks: Sequence[int], growth_rate: int = 16,
+                 init_features: int = 48, drop_rate: float = 0.0,
+                 upsample: str = "nearest"):
+        super().__init__()
+        mods = OrderedDict(Conv0=_conv(dim_latent, init_features, 3,
+                                       padding=1))
+        _add_decoder(mods, init_features, list(blocks), out_channels,
+                     growth_rate, drop_rate, upsample)
         self.features = nn.Sequential(mods)
 
     def forward(self, x):

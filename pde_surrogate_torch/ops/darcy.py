@@ -1,34 +1,51 @@
-"""Darcy-flow physics losses, linear law (NCHW).
+"""Darcy-flow physics losses.
 
-Counterpart of pde_surrogate_tpu/ops/darcy.py (conv family and the
-finite-volume objectives).  The PDE:
+Counterpart of pde_surrogate_tpu/ops/darcy.py.  The PDE:
 
     div(K(s) grad u(s)) = 0   on (0,1)^2
     u = 1 at x=0 (left),  u = 0 at x=1 (right),  zero vertical flux top/bottom
 
-Fields are (B, C, H, W) with output channels (u, sigma1, sigma2) =
-(pressure, horizontal flux, vertical flux) and input K in channel 0.
-The conv family takes its derivatives from the Sobel matrix stencils
-(``ops.filters``); the finite-volume family (``fv_*``) uses the label
-solver's own discretization (``solvers/fd_darcy``), and ``fvcg`` runs a
-differentiable Jacobi PCG on it inside the loss.
+with the linear law sigma = -K grad u or a nonlinear one (polynomial or
+exponential, reference models/darcy.py:179-208).  Three families:
+
+* conv: fields are (B, C, H, W) with output channels (u, sigma1, sigma2) =
+  (pressure, horizontal flux, vertical flux) and input K in channel 0;
+  derivatives from the Sobel matrix stencils (``ops.filters``);
+* finite volume (``fv_*``): the label solver's own discretization
+  (``solvers/fd_darcy``); ``fvcg`` runs a differentiable Jacobi PCG on it
+  inside the loss;
+* FC (collocation points, the PINN solver): a network maps (N, 2) points
+  in (y, x) order on [0, 1]^2 to (u, tau_ver, tau_hor); per-point
+  Jacobians (and Hessians) with respect to the point come from
+  ``torch.func`` (``vmap`` of ``jacfwd``), as the JAX package's
+  ``vmap(jacfwd)``, and the parameter gradient flows through them.  The
+  network is an ``nn.Module`` or a ``(module, params)`` pair evaluated with
+  ``torch.func.functional_call``.
 """
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 import torch.nn.functional as F
 
-from ..solvers.fd_darcy import (_apply_operator, _face_conductivities,
-                                _face_fluxes, _face_kx_ky, _faces_to_nodes,
-                                _interior_mask, _laplacian)
+from ..solvers.fd_darcy import (_apply_operator, _dirichlet_lift,
+                                _face_conductivities, _face_fluxes,
+                                _face_kx_ky, _faces_to_nodes, _interior_mask,
+                                _laplacian)
 from .filters import SobelFilter
 
-__all__ = ["conv_constitutive_constraint", "conv_continuity_constraint",
-           "conv_boundary_condition", "mixed_residual_loss",
+__all__ = ["conv_constitutive_constraint",
+           "conv_constitutive_constraint_nonlinear",
+           "conv_constitutive_constraint_nonlinear_exp",
+           "conv_continuity_constraint", "conv_boundary_condition",
+           "energy_functional_exp", "mixed_residual_loss",
            "fv_mixed_residual_loss", "fv_cg_u_error", "fv_cg_anchors",
            "fv_cg_error_loss", "reconstruct_pressure",
-           "flux_pressure_consistency"]
+           "flux_pressure_consistency", "bilinear_interpolate",
+           "mixed_residual_fc", "primal_residual_fc", "primal_variational_fc",
+           "neumann_boundary", "neumann_boundary_mixed"]
 
 
 def conv_constitutive_constraint(input: torch.Tensor, output: torch.Tensor,
@@ -41,6 +58,44 @@ def conv_constitutive_constraint(input: torch.Tensor, output: torch.Tensor,
     est_sigma2 = -input * sobel.grad_v(u)
     return torch.mean((output[:, 1:2] - est_sigma1) ** 2
                       + (output[:, 2:3] - est_sigma2) ** 2)
+
+
+def conv_constitutive_constraint_nonlinear(input: torch.Tensor,
+                                           output: torch.Tensor,
+                                           sobel: SobelFilter, beta1: float,
+                                           beta2: float) -> torch.Tensor:
+    """Residual of the polynomial law -K grad u = sigma + beta1 sqrt(K)
+    sigma^2 + beta2 K sigma^3, componentwise (models/darcy.py:179-191)."""
+    u = output[:, 0:1]
+    k_u_h = -input * sobel.grad_h(u)
+    k_u_v = -input * sobel.grad_v(u)
+    sigma = output[:, 1:3]
+    rhs = (sigma + beta1 * torch.sqrt(input) * sigma ** 2
+           + beta2 * input * sigma ** 3)
+    return torch.mean((k_u_h - rhs[:, 0:1]) ** 2 + (k_u_v - rhs[:, 1:2]) ** 2)
+
+
+def conv_constitutive_constraint_nonlinear_exp(input: torch.Tensor,
+                                               output: torch.Tensor,
+                                               sobel: SobelFilter
+                                               ) -> torch.Tensor:
+    """Residual of the exponential law sigma = -exp(K u) grad u
+    (models/darcy.py:193-208)."""
+    u = output[:, 0:1]
+    coef = torch.exp(input * u)
+    return torch.mean((output[:, 1:2] + coef * sobel.grad_h(u)) ** 2
+                      + (output[:, 2:3] + coef * sobel.grad_v(u)) ** 2)
+
+
+def energy_functional_exp(input: torch.Tensor, output: torch.Tensor,
+                          sobel: SobelFilter) -> torch.Tensor:
+    """Variational energy of the exponential law, mean(0.5 exp(K u)
+    |grad u|^2) (models/darcy.py:151-159); ``output`` is the field u
+    (B, 1, H, W)."""
+    grad_h = sobel.grad_h(output)
+    grad_v = sobel.grad_v(output)
+    return torch.mean(0.5 * torch.exp(input * output)
+                      * (grad_h ** 2 + grad_v ** 2))
 
 
 def conv_continuity_constraint(output: torch.Tensor, sobel: SobelFilter,
@@ -66,12 +121,25 @@ def conv_boundary_condition(output: torch.Tensor):
 
 
 def mixed_residual_loss(input: torch.Tensor, output: torch.Tensor,
-                        sobel: SobelFilter, weight_bound: float = 10.0):
-    """constitutive + continuity + weight_bound * boundary, linear law.
+                        sobel: SobelFilter, weight_bound: float = 10.0,
+                        nonlinear: str | None = None, beta1: float = 1.0,
+                        beta2: float = 1.0):
+    """constitutive + continuity + weight_bound * boundary; the law is
+    linear (``nonlinear=None``), polynomial (``"poly"``, with beta1 and
+    beta2) or exponential (``"exp"``).
 
     Returns ``(loss, (pde, dirichlet, neumann))``.
     """
-    constitutive = conv_constitutive_constraint(input, output, sobel)
+    if nonlinear is None:
+        constitutive = conv_constitutive_constraint(input, output, sobel)
+    elif nonlinear == "poly":
+        constitutive = conv_constitutive_constraint_nonlinear(
+            input, output, sobel, beta1, beta2)
+    elif nonlinear == "exp":
+        constitutive = conv_constitutive_constraint_nonlinear_exp(
+            input, output, sobel)
+    else:
+        raise ValueError(f"unknown nonlinear law: {nonlinear}")
     continuity = conv_continuity_constraint(output, sobel)
     dirichlet, neumann = conv_boundary_condition(output)
     pde = constitutive + continuity
@@ -139,13 +207,6 @@ def _resolve_n_cg(n_cg: int | None, n: int) -> int:
     contrast, so the Krylov depth that reaches the smooth error modes grows
     ~ n)."""
     return n if n_cg is None else n_cg
-
-
-def _dirichlet_lift(n: int, like: torch.Tensor) -> torch.Tensor:
-    """(n, n): u = 1 on the left column, 0 elsewhere."""
-    u_d = like.new_zeros(n, n)
-    u_d[:, 0] = 1.0
-    return u_d
 
 
 def _cg_pressure_errors(input: torch.Tensor, output: torch.Tensor,
@@ -270,3 +331,121 @@ def flux_pressure_consistency(input: torch.Tensor, output: torch.Tensor
     num = torch.sqrt(torch.sum((u_hat - u_rec) ** 2, dim=(1, 2)))
     den = torch.sqrt(torch.sum(u_rec ** 2, dim=(1, 2)))
     return torch.mean(num / den)
+
+
+# ---------------------------------------------------------------------------
+# FC family (collocation points, per-point Jacobians by torch.func)
+# ---------------------------------------------------------------------------
+
+
+def _net(model) -> Callable[[torch.Tensor], torch.Tensor]:
+    """pts -> outputs for an ``nn.Module`` or a ``(module, params)`` pair
+    (``params`` a dict of name -> tensor for ``functional_call``)."""
+    if isinstance(model, tuple):
+        module, params = model
+        return lambda pts: torch.func.functional_call(module, params, (pts,))
+    return model
+
+
+def bilinear_interpolate(im: torch.Tensor, x: torch.Tensor,
+                         y: torch.Tensor) -> torch.Tensor:
+    """Bilinearly interpolate the image ``im`` (H, W) at pixel coordinates
+    (x, y), each (N,): the reference's gather and lerp
+    (models/darcy.py:18-48), with the cell index clamped to size - 2 so
+    that points on the top or right edge interpolate (the reference's
+    double clamp zeroes all four weights there)."""
+    x0 = torch.clamp(torch.floor(x).to(torch.int32), 0, im.shape[1] - 2).long()
+    y0 = torch.clamp(torch.floor(y).to(torch.int32), 0, im.shape[0] - 2).long()
+    x1, y1 = x0 + 1, y0 + 1
+    x0f, x1f = x0.to(x.dtype), x1.to(x.dtype)
+    y0f, y1f = y0.to(y.dtype), y1.to(y.dtype)
+    wa = (x1f - x) * (y1f - y)
+    wb = (x1f - x) * (y - y0f)
+    wc = (x - x0f) * (y1f - y)
+    wd = (x - x0f) * (y - y0f)
+    return (im[y0, x0] * wa + im[y1, x0] * wb + im[y0, x1] * wc
+            + im[y1, x1] * wd)
+
+
+def _pointwise_val_jac(model, x: torch.Tensor):
+    """Per-point (value, Jacobian d out / d point): ((N, out), (N, out, 2)).
+
+    Forward mode over the 2-D input (``jacfwd``, two tangents) vmapped over
+    the points, as the JAX package's ``vmap(jacfwd(..., has_aux=True))``:
+    the primal comes from the same evaluation.  The result stays
+    differentiable with respect to the network's parameters.
+    """
+    net = _net(model)
+
+    def f(pt):
+        out = net(pt[None, :])[0]
+        return out, out
+
+    jac, val = torch.func.vmap(torch.func.jacfwd(f, has_aux=True))(x)
+    return val, jac
+
+
+def _u_single(model):
+    net = _net(model)
+    return lambda pt: net(pt[None, :])[0, 0]
+
+
+def mixed_residual_fc(model, x: torch.Tensor, K: torch.Tensor,
+                      rand_colloc: bool = False,
+                      imsize: int | None = None) -> torch.Tensor:
+    """Mixed-form residual at collocation points, constitutive +
+    continuity (models/darcy.py:113-144).
+
+    ``model`` emits (u, tau_ver, tau_hor), the reference's FC channel order
+    (y-flux, then x-flux); ``x`` is (N, 2) in (y, x) order; ``K`` is the
+    (N, 1) on-grid permeability or, with ``rand_colloc``, the (H*W, 1) grid,
+    interpolated at the points in pixel space (``imsize`` required).
+    """
+    y, u_x = _pointwise_val_jac(model, x)      # (N, 3), (N, 3, 2)
+    tau = y[:, 1:3]
+    grad_u = u_x[:, 0, :]                       # (du/dy, du/dx)
+    grad_tau_ver = u_x[:, 1, 0]                 # d tau_ver / dy
+    grad_tau_hor = u_x[:, 2, 1]                 # d tau_hor / dx
+    if rand_colloc:
+        if imsize is None:
+            raise ValueError("imsize required for off-grid collocation")
+        grid = K.reshape(imsize, imsize)
+        kx = x[:, 1] * (imsize - 1)
+        ky = x[:, 0] * (imsize - 1)
+        K = bilinear_interpolate(grid, kx, ky)[:, None]
+    loss_constitutive = torch.mean((K * grad_u + tau) ** 2)
+    loss_continuity = torch.mean((grad_tau_ver + grad_tau_hor) ** 2)
+    return loss_constitutive + loss_continuity
+
+
+def primal_residual_fc(model, x: torch.Tensor, K_grad_ver: torch.Tensor,
+                       K_grad_hor: torch.Tensor, K: torch.Tensor
+                       ) -> torch.Tensor:
+    """Second-order primal residual, div(K grad u) = grad K . grad u +
+    K lap u (models/darcy.py:51-78), with per-point gradients and Hessians
+    of u (``torch.func.grad`` and ``hessian``, vmapped)."""
+    u = _u_single(model)
+    grad_u = torch.func.vmap(torch.func.grad(u))(x)           # (N, 2)
+    hess_u = torch.func.vmap(torch.func.hessian(u))(x)        # (N, 2, 2)
+    div = (K_grad_ver * grad_u[:, 0] + K * hess_u[:, 0, 0]
+           + K_grad_hor * grad_u[:, 1] + K * hess_u[:, 1, 1])
+    return torch.mean(div ** 2)
+
+
+def primal_variational_fc(model, x: torch.Tensor, K: torch.Tensor
+                          ) -> torch.Tensor:
+    """Energy functional mean(0.5 K |grad u|^2) (models/darcy.py:97-110)."""
+    grad_u = torch.func.vmap(torch.func.grad(_u_single(model)))(x)
+    return torch.mean(0.5 * K * torch.sum(grad_u ** 2, dim=1))
+
+
+def neumann_boundary_mixed(model, x: torch.Tensor) -> torch.Tensor:
+    """mean(tau_ver^2) on top/bottom points (models/darcy.py:88-94)."""
+    return torch.mean(_net(model)(x)[:, 1] ** 2)
+
+
+def neumann_boundary(model, x: torch.Tensor) -> torch.Tensor:
+    """Primal-form Neumann penalty mean((du/dy)^2) on top/bottom points:
+    coordinate 0 is y under the (y, x) ordering, as in the reference."""
+    grad_u = torch.func.vmap(torch.func.grad(_u_single(model)))(x)
+    return torch.mean(grad_u[:, 0] ** 2)

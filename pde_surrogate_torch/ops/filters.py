@@ -13,6 +13,11 @@ with replicate padding and the modifier folded into the operator matrices.
 Here they run as two ``torch.matmul`` calls in f32 (the second contracts the
 rank axis with the columns, as the JAX einsum does).  Images are NCHW, or
 any (..., H, W).
+
+The Gaussian smoother and the Farid-Simoncelli ("Fourier") derivative
+filters (reference utils/image_gradient.py:95-293) are exploratory in the
+reference (no driver uses them); they are ported for parity and run the
+same way, with reflect-padded and replicate-padded operator matrices.
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["SobelFilter", "stencil_matrix"]
+__all__ = ["SobelFilter", "FourierFilter", "GaussianFilter",
+           "gaussian_filter1d_weights", "stencil_matrix"]
 
 
 def stencil_matrix(n: int, stencil, offset: int | None = None) -> np.ndarray:
@@ -139,3 +145,129 @@ class SobelFilter:
         """d/dy of (..., H, W) images (unit square, corrected boundary)."""
         _, _, lv, rv = self._ops(filter_size or self.filter_size, image)
         return _apply_lr(image, lv, rv)
+
+
+def _to_tensors(left: np.ndarray, right: np.ndarray, image: torch.Tensor):
+    """numpy operator stacks (r, H, H) and (r, W, W) as tensors on the
+    image's device and dtype, the right one concatenated along rows for
+    ``_apply_lr``."""
+    return (torch.from_numpy(left).to(image.device, image.dtype),
+            torch.from_numpy(right.reshape(-1, right.shape[-1])).to(
+                image.device, image.dtype))
+
+
+def gaussian_filter1d_weights(sigma: float, order: int = 0,
+                              truncate: float = 4.0) -> np.ndarray:
+    """1-D Gaussian (derivative) filter weights, orders 0..3 (the
+    scipy-derived table of the reference, utils/image_gradient.py:95-161).
+    """
+    if order not in range(4):
+        raise ValueError("Order outside 0..3 not implemented")
+    sd = float(sigma)
+    var = sd * sd
+    lw = int(truncate * sd + 0.5)
+    x = np.arange(-lw, lw + 1, dtype=np.float64)
+    w = np.exp(-0.5 * x * x / var)
+    w /= w.sum()
+    if order == 1:
+        w = (x / var) * w
+    elif order == 2:
+        w = (x * x / var - 1.0) * w / var
+    elif order == 3:
+        w = -(3.0 - x * x / var) * x * w / (var * var)
+    return w
+
+
+@functools.lru_cache(maxsize=32)
+def _reflect_stencil_matrix(weights: tuple, n: int) -> np.ndarray:
+    """(n, n) float32 operator of a 1-D correlation with reflect padding
+    (the edge is not repeated: index -1 mirrors to 1, as torch's 'reflect'
+    pad)."""
+    c = len(weights) // 2
+    m = np.zeros((n, n), dtype=np.float64)
+    for i in range(n):
+        for k, wk in enumerate(weights):
+            j = i + k - c
+            while j < 0 or j >= n:
+                j = -j if j < 0 else 2 * (n - 1) - j
+            m[i, j] += wk
+    return m.astype(np.float32)
+
+
+class GaussianFilter:
+    """Separable Gaussian smoother with reflect padding
+    (utils/image_gradient.py:164-184) on (..., H, W) images, as two matrix
+    products."""
+
+    def __init__(self, sigma: float = 1.0, truncate: float = 4.0,
+                 order: int = 0):
+        self.weights1d = gaussian_filter1d_weights(sigma, order, truncate)
+        self._cache: dict = {}
+
+    def __call__(self, image: torch.Tensor) -> torch.Tensor:
+        h, w = image.shape[-2], image.shape[-1]
+        key = (h, w, image.device, image.dtype)
+        ops = self._cache.get(key)
+        if ops is None:
+            weights = tuple(self.weights1d)
+            ops = _to_tensors(
+                _reflect_stencil_matrix(weights, h)[None],
+                np.ascontiguousarray(
+                    _reflect_stencil_matrix(weights, w).T)[None],
+                image)
+            self._cache[key] = ops
+        return _apply_lr(image, *ops)
+
+
+class FourierFilter:
+    """Farid-Simoncelli matched derivative filters
+    (utils/image_gradient.py:241-293): 3/5/7-tap interpolator and
+    differentiator pairs, replicate padding, no boundary modifier, scaled
+    by the image size."""
+
+    _TAPS = {
+        3: (np.array([0.229879, 0.540242, 0.229879]),
+            np.array([-0.425287, 0.0, 0.425287])),
+        5: (np.array([0.037659, 0.249153, 0.426375, 0.249153, 0.037659]),
+            np.array([-0.109604, -0.276691, 0.0, 0.276691, 0.109604])),
+        7: (np.array([0.005412, 0.069591, 0.244560, 0.360875, 0.244560,
+                      0.069591, 0.005412]),
+            np.array([-0.019479, -0.123915, -0.193555, 0.0, 0.193555,
+                      0.123915, 0.019479])),
+    }
+
+    def __init__(self, imsize: int):
+        self.imsize = int(imsize)
+        self._cache: dict = {}
+
+    def _ops(self, filter_size: int, horizontal: bool, image: torch.Tensor):
+        key = (filter_size, horizontal, image.device, image.dtype)
+        ops = self._cache.get(key)
+        if ops is None:
+            lh, rh, lv, rv = _fourier_operators(self.imsize, filter_size)
+            ops = _to_tensors(*((lh, rh) if horizontal else (lv, rv)), image)
+            self._cache[key] = ops
+        return ops
+
+    def grad_h(self, image: torch.Tensor, filter_size: int = 5
+               ) -> torch.Tensor:
+        """d/dx of (..., H, W) images."""
+        return _apply_lr(image, *self._ops(filter_size, True, image))
+
+    def grad_v(self, image: torch.Tensor, filter_size: int = 5
+               ) -> torch.Tensor:
+        """d/dy of (..., H, W) images."""
+        return _apply_lr(image, *self._ops(filter_size, False, image))
+
+
+@functools.lru_cache(maxsize=8)
+def _fourier_operators(imsize: int, filter_size: int):
+    p, d = FourierFilter._TAPS[filter_size]
+    s = stencil_matrix(imsize, p)
+    df = stencil_matrix(imsize, d)
+
+    def f32(a):
+        return np.ascontiguousarray(a, dtype=np.float32)
+
+    return (f32(s[None]), f32((imsize * df.T)[None]), f32((imsize * df)[None]),
+            f32(s.T[None]))

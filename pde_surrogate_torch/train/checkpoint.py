@@ -7,6 +7,9 @@ files per epoch in ``run_dir/checkpoints``:
   * ``model_epoch{N}.json`` — metadata (epoch, logger metric lists,
     flux-pressure consistency history).
 
+The single-instance solvers keep weights only: ``save_weights`` writes
+``{"model"}`` to the same file name, which ``restore_weights`` reads.
+
 Writes are atomic (tmp + rename), so a killed job never leaves a torn file.
 """
 
@@ -20,7 +23,8 @@ import re
 
 import torch
 
-__all__ = ["save_checkpoint", "restore_checkpoint", "restore_weights",
+__all__ = ["save_checkpoint", "save_weights", "restore_checkpoint",
+           "restore_weights",
            "latest_epoch", "latest_meta_epoch", "select_consistency_epoch",
            "checkpoint_file"]
 
@@ -53,6 +57,16 @@ def save_checkpoint(ckpt_dir: str, epoch: int, state,
     _atomic_write(path, buf.getvalue())
     if meta is not None:
         _atomic_write(_meta_file(ckpt_dir, epoch), json.dumps(meta, indent=2))
+    return path
+
+
+def save_weights(ckpt_dir: str, epoch: int, model) -> str:
+    """Write only ``model``'s state dict (weights and buffers)."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    buf = io.BytesIO()
+    torch.save({"model": model.state_dict()}, buf)
+    path = checkpoint_file(ckpt_dir, epoch)
+    _atomic_write(path, buf.getvalue())
     return path
 
 

@@ -77,15 +77,13 @@ def _physics_loss(physics: str, x, output, sobel, weight_bound,
       CG-recovered pressure-error norm + ``fvcg_flux_weight`` x the flux
       anchor against the CG-corrected pressure (``fv_cg_anchors``).
 
-    ``fvcg_iters=None`` scales the CG depth with the grid size.  The
-    nonlinear laws come with ROADMAP C2; the FV objectives take the linear
-    law only, as in the JAX package.
+    ``fvcg_iters=None`` scales the CG depth with the grid size.
+    ``nonlinear`` ("poly" or "exp", beta1 = beta2 = 1) picks the law of
+    the Sobel objective; the FV objectives take the linear law only, as in
+    the JAX package.
     """
     if physics == "sobel":
-        if nonlinear is not None:
-            raise NotImplementedError(
-                f"nonlinear law {nonlinear!r} is not ported yet (ROADMAP C2)")
-        return mixed_residual_loss(x, output, sobel, weight_bound)
+        return mixed_residual_loss(x, output, sobel, weight_bound, nonlinear)
     if physics == "sobel_fvcg":
         if nonlinear is not None:
             raise ValueError("physics='sobel_fvcg' supports the linear law "

@@ -1,10 +1,12 @@
-"""Move DenseED weights from the JAX package's flax trees into the port.
+"""Move weights from the JAX package's flax trees into the port.
 
-The reverse of ``pde_surrogate_tpu/utils/torch_import.convert_codec_state_dict``:
-nested dicts of numpy arrays (flax ``params`` and ``batch_stats``) become a
-torch ``state_dict`` with the reference module names.  Imports nothing of
-the JAX package; the parity tests use it to run both models on the same
-weights.
+The codec (DenseED and the solver's Decoder) is the reverse of
+``pde_surrogate_tpu/utils/torch_import.convert_codec_state_dict``: nested
+dicts of numpy arrays (flax ``params`` and ``batch_stats``) become a torch
+``state_dict`` with the reference module names.  The CPPNs keep the flax
+layer names, and a Dense ``kernel`` (in, out) becomes a ``weight``
+(out, in).  Imports nothing of the JAX package; the parity tests use it to
+run both models on the same weights.
 """
 
 from __future__ import annotations
@@ -14,10 +16,11 @@ import re
 import numpy as np
 import torch
 
-__all__ = ["codec_state_dict_from_jax"]
+__all__ = ["codec_state_dict_from_jax", "cppn_state_dict_from_jax"]
 
 # flax module names are the reference names lowercased
 _TOP = [(re.compile(r"in_conv$"), lambda m: "In_conv"),
+        (re.compile(r"conv0$"), lambda m: "Conv0"),
         (re.compile(r"encblock(\d+)$"), lambda m: f"EncBlock{m.group(1)}"),
         (re.compile(r"decblock(\d+)$"), lambda m: f"DecBlock{m.group(1)}"),
         (re.compile(r"transdown(\d+)$"), lambda m: f"TransDown{m.group(1)}"),
@@ -43,7 +46,8 @@ def _flatten(tree, prefix=()):
 
 
 def codec_state_dict_from_jax(params, batch_stats) -> dict[str, torch.Tensor]:
-    """flax (params, batch_stats) of a DenseED -> torch state_dict.
+    """flax (params, batch_stats) of a DenseED or Decoder -> torch
+    state_dict.
 
     Conv kernels (kH, kW, I, O) -> weight (O, I, kH, kW); BN ``scale`` /
     ``bias`` -> ``weight`` / ``bias``; ``mean`` / ``var`` ->
@@ -71,4 +75,21 @@ def codec_state_dict_from_jax(params, batch_stats) -> dict[str, torch.Tensor]:
         sd[f"{name}.{key}"] = torch.from_numpy(value.copy())
         sd.setdefault(f"{name}.num_batches_tracked",
                       torch.tensor(0, dtype=torch.long))
+    return sd
+
+
+def cppn_state_dict_from_jax(params) -> dict[str, torch.Tensor]:
+    """flax params of a CPPN / ResCPPN -> torch state_dict: the same layer
+    names joined by dots, Dense ``kernel`` (in, out) -> ``weight``
+    (out, in), ``bias`` as is."""
+    sd: dict[str, torch.Tensor] = {}
+    for path, leaf, value in _flatten(params):
+        name = ".".join(path)
+        if leaf == "kernel":
+            sd[f"{name}.weight"] = torch.from_numpy(
+                np.ascontiguousarray(value.T))
+        elif leaf == "bias":
+            sd[f"{name}.bias"] = torch.from_numpy(value.copy())
+        else:
+            raise ValueError(f"unrecognized flax param: {name}/{leaf}")
     return sd

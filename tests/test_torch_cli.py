@@ -4,9 +4,10 @@ make_dataset -> train_codec_mixed_residual -> predict_codec at a tiny size
 (imsize 16, blocks 1,2,1, growth 4), the fvcg objective, the supervised
 (MLE) driver with its train labels attached in place, --init-from,
 --find-lr, the label attach path of ensure_dataset, the options that are
-not ported yet, the run-dir names against the JAX parsers, and a check
-that no module of the port (nor chip_smoke.py) imports JAX or the JAX
-package.
+not ported yet, the run-dir names against the JAX parsers, the
+single-instance solvers (FC and conv decoder, linear and nonlinear, their
+test sets, their divergence guard), and a check that no module of the
+port (nor chip_smoke.py) imports JAX or the JAX package.
 """
 
 import ast
@@ -23,6 +24,8 @@ import torch
 from pde_surrogate_torch.cli import _codec_common
 from pde_surrogate_torch.cli import make_dataset as t_make
 from pde_surrogate_torch.cli import predict_codec as t_predict
+from pde_surrogate_torch.cli import solve_conv_mixed_residual as t_conv
+from pde_surrogate_torch.cli import solve_fc_mixed_residual as t_fc
 from pde_surrogate_torch.cli import train_codec_max_likelihood as t_mle
 from pde_surrogate_torch.cli import train_codec_mixed_residual as t_train
 from pde_surrogate_torch.cli._codec_common import ensure_dataset
@@ -301,6 +304,179 @@ def test_mle_driver_defaults_to_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         t_mle.main(argv + SPLIT + ["--exp-dir", str(tmp_path), "--data-dir",
                                    str(tmp_path / "d")])
+
+
+SOLVER = ["--imsize", "16", "--kle", "128", "--idx", "1", "--no-plot",
+          "--device", "cpu"]
+
+
+def _solver_argv(tmp_path, *extra):
+    return SOLVER + ["--data-dir", str(tmp_path / "d"), "--exp-dir",
+                     str(tmp_path / "e"), *extra]
+
+
+@pytest.mark.parametrize("data,kle", [("grf", 128), ("grf", 512),
+                                      ("warped_grf", 512),
+                                      ("channelized", 512)])
+def test_solver_test_sets_match_jax(monkeypatch, tmp_path, data, kle):
+    """ensure_test_dataset asks for the JAX package's file, size and seed
+    (kle{k}_lhs{1000|1024}_test with seed 32 000 + kle; warped 30 000; the
+    channelized file and seed of the codec drivers) with labels."""
+    import argparse
+
+    from pde_surrogate_tpu.cli import _codec_common as j_common
+    from pde_surrogate_tpu.cli import solve_conv_mixed_residual as j_conv
+    seen = {}
+
+    def spy(name):
+        def record(path, *a, **k):
+            seen[name] = (os.path.relpath(path, tmp_path), a,
+                          k.get("seed"), k.get("with_output"))
+        return record
+
+    monkeypatch.setattr(t_conv, "ensure_dataset", spy("t"))
+    monkeypatch.setattr(j_common, "ensure_dataset", spy("j"))
+    args = argparse.Namespace(data=data, kle=kle, imsize=16, idx=3,
+                              data_dir=str(tmp_path), device="cpu")
+    assert (os.path.relpath(t_conv.ensure_test_dataset(args), tmp_path)
+            == os.path.relpath(j_conv.ensure_test_dataset(args), tmp_path))
+    assert seen["t"] == seen["j"] and seen["t"][3] is True
+    args.idx = 5000
+    with pytest.raises(ValueError, match="out of range"):
+        t_conv.ensure_test_dataset(args)
+
+
+def test_solve_fc_cli(tmp_path):
+    """The FC (PINN) solver: a 20-step Adam warmup, then 3 epochs of zoom
+    L-BFGS; the run dir and the epoch{N}.npy prediction (in the dataset's
+    channel order) of the JAX package; the loss falls; the test set is
+    labelled in the data dir."""
+    params, logger, target = t_fc.main(_solver_argv(
+        tmp_path, "--dim-hidden", "32", "--layers-hidden", "2",
+        "--n-colloc", "256", "--epochs", "3", "--test-freq", "3",
+        "--adam-warmup", "20"))
+    assert len(logger["loss"]) == 3
+    assert np.isfinite(logger["loss"]).all()
+    assert logger["loss"][-1] <= logger["loss"][0]
+    assert min(logger["evals"]) >= 21
+    assert target.shape == (3, 16, 16)
+    run = (tmp_path / "e" / "fc_mixed_residual" /
+           "grf_kle128_idx1_dhid32_lhid2_alpha1_1.0_alpha2_1.0_lr0.5_wb10.0_"
+           "epochs3_ongrid_True_ncolloc256")
+    pred = np.load(run / "epoch3.npy")
+    assert pred.shape == (3, 16, 16) and np.isfinite(pred).all()
+    assert (run / "loss.txt").is_file()
+    assert th5.dataset_shapes(str(tmp_path / "d" / "16x16" /
+                                  "kle128_lhs1024_test.hdf5")) == {
+        "input": (1024, 1, 16, 16), "output": (1024, 3, 16, 16)}
+
+
+@pytest.mark.parametrize("linesearch", ["fixed", "zoom"])
+def test_solve_conv_cli(tmp_path, linesearch):
+    """The conv-decoder solver with the 5x5 stencil: a 10-step Adam
+    warmup, then 2 L-BFGS epochs with fixed steps or the zoom linesearch;
+    the JAX package's run dir, predictions and weights."""
+    params, logger, target = t_conv.main(_solver_argv(
+        tmp_path, "--blocks", "2,2", "--epochs", "2", "--test-freq", "2",
+        "--ckpt-freq", "2", "--linesearch", linesearch, "--adam-warmup",
+        "10", "--sobel-size", "5"))
+    assert len(logger["loss"]) == 2 and np.isfinite(logger["loss"]).all()
+    assert logger["loss"][-1] < logger["loss"][0] * 10
+    if linesearch == "fixed":
+        assert logger["evals"] == [21, 21]
+    run = (tmp_path / "e" / "conv_mixed_residual" /
+           "grf_kle128_idx1_dz1_blocks[2, 2]_lr0.5_wb10.0_epochs2")
+    pred = np.load(run / "epoch2.npy")
+    assert pred.shape == (3, 16, 16) and np.isfinite(pred).all()
+    assert logger["rel_l2"][-1][0] == 2
+    weights = torch.load(run / "model_epoch2.pt", weights_only=True)["model"]
+    assert "features.Conv0.weight" in weights
+    np.testing.assert_array_equal(
+        target, th5.load_data(str(tmp_path / "d" / "16x16" /
+                                  "kle128_lhs1024_test.hdf5"), 2,
+                              only_input=False)[1][1])
+
+
+def test_solve_conv_nonlinear_cli(tmp_path):
+    """--nonlinear: the FV-Newton oracle obeys the boundary conditions and
+    is cached as output_fv_newton.npy; a second run reuses it (mtime
+    unchanged)."""
+    argv = _solver_argv(tmp_path, "--blocks", "2,2", "--epochs", "2",
+                        "--test-freq", "2", "--nonlinear", "--alpha1",
+                        "0.5", "--alpha2", "0.5", "--adam-warmup", "20")
+    params, logger, target = t_conv.main(argv)
+    assert target.shape == (3, 16, 16) and np.isfinite(target).all()
+    assert np.allclose(target[0, :, 0], 1.0, atol=1e-4)
+    assert np.allclose(target[0, :, -1], 0.0, atol=1e-4)
+    assert (target[2, [0, -1]] == 0.0).all()
+    assert np.isfinite(logger["loss"]).all()
+    (cache,) = (tmp_path / "e").rglob("output_fv_newton.npy")
+    assert cache.parent.name.endswith("_alpha1_0.5_alpha2_0.5")
+    assert cache.parent.parent.name == "conv_mixed_residual_nonlinear"
+    mtime = cache.stat().st_mtime_ns
+    _, _, target2 = t_conv.main(argv)
+    assert cache.stat().st_mtime_ns == mtime
+    np.testing.assert_array_equal(target2, target)
+
+
+@pytest.mark.parametrize("linesearch", ["zoom", "fixed"])
+def test_solve_conv_divergence_guard(tmp_path, monkeypatch, capsys,
+                                     linesearch):
+    """A loss that turns NaN: every epoch restarts from the best params.
+    zoom (NaN from epoch 2 on) stops after 3 restarts at the best params;
+    fixed (NaN in epoch 2 only) halves the step and goes on."""
+    epochs = {"n": 0}
+    make = t_conv.make_lbfgs_epoch
+
+    def counting(*a, **k):
+        epoch = make(*a, **k)
+
+        def wrapped(params, state):
+            epochs["n"] += 1
+            return epoch(params, state)
+        return wrapped
+
+    boundary = t_conv.conv_boundary_condition
+    nan_epochs = (lambda e: e >= 2) if linesearch == "zoom" else (
+        lambda e: e == 2)
+
+    def turning_nan(output):
+        diri, neum = boundary(output)
+        return (diri * float("nan") if nan_epochs(epochs["n"]) else diri,
+                neum)
+
+    monkeypatch.setattr(t_conv, "make_lbfgs_epoch", counting)
+    monkeypatch.setattr(t_conv, "conv_boundary_condition", turning_nan)
+    params, logger, _ = t_conv.main(_solver_argv(
+        tmp_path, "--blocks", "1,1", "--epochs", "6" if linesearch == "zoom"
+        else "3", "--test-freq", "100", "--linesearch", linesearch,
+        "--adam-warmup", "5"))
+    out = capsys.readouterr().out
+    first = logger["loss"][0]
+    assert np.isfinite(first)
+    if linesearch == "zoom":
+        assert epochs["n"] == 4 and logger["loss"] == [first] * 4
+        assert "stopping early" in out
+    else:
+        assert epochs["n"] == 3 and logger["loss"][1] == first
+        assert np.isfinite(logger["loss"][2])
+        assert "lr x0.5" in out
+    assert out.count("diverged (loss nan)") == (3 if linesearch == "zoom"
+                                                else 1)
+    assert torch.isfinite(params).all()
+
+
+@pytest.mark.parametrize("cli", [t_fc, t_conv], ids=["fc", "conv"])
+def test_solvers_default_to_cuda(tmp_path, cli):
+    """The solver CLIs run on CUDA unless told otherwise and never fall
+    back to the CPU."""
+    assert cli.Parser().parse_args([]).device == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    argv = [a for a in SOLVER if a not in ("--device", "cpu")]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(argv + ["--exp-dir", str(tmp_path), "--data-dir",
+                         str(tmp_path / "d")])
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -109,3 +109,86 @@ def test_fvcg_losses_on_gpu_match_cpu(cuda, name):
     bound = max(1e-5 * float(g_cpu.abs().max()),
                 3 * float((g_cpu - g64).abs().max()))
     assert float((g_gpu - g_cpu).abs().max()) <= bound
+
+
+def _fc_loss_and_grad(device, dtype):
+    """The FC solver's loss (mixed residual, Dirichlet and Neumann terms)
+    of a CPPN 2-64x4-3 on 256 points, and its parameter gradient."""
+    from pde_surrogate_torch.models.cppn import CPPN
+    from pde_surrogate_torch.ops import darcy as td
+    from pde_surrogate_torch.train.lbfgs import FlatParams, value_and_grad
+    torch.manual_seed(0)
+    model = CPPN(2, 3, 64, 4).to(device, dtype)
+    flat = FlatParams(model)
+    rng = np.random.default_rng(0)
+    x, b = (torch.from_numpy(rng.random((n, 2))).to(device, dtype)
+            for n in (256, 32))
+    K = torch.from_numpy(np.exp(rng.normal(0, 1, (256, 1)))).to(device, dtype)
+
+    def loss(v):
+        net = (model, flat.unflatten(v))
+        return (td.mixed_residual_fc(net, x, K)
+                + 10.0 * td.neumann_boundary_mixed(net, b))
+
+    value, grad = value_and_grad(loss, flat.vector())
+    return float(value), grad.double().cpu()
+
+
+def test_fc_loss_and_gradient_on_gpu_match_cpu(cuda):
+    """Loss within 1e-5 relative; the parameter gradient (through the
+    per-point Jacobians) within 1e-5 * max|g| of the CPU's, or three times
+    the CPU float32 gradient's own distance from float64."""
+    l_gpu, g_gpu = _fc_loss_and_grad(cuda, torch.float32)
+    l_cpu, g_cpu = _fc_loss_and_grad("cpu", torch.float32)
+    _, g64 = _fc_loss_and_grad("cpu", torch.float64)
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    bound = max(1e-5 * float(g_cpu.abs().max()),
+                3 * float((g_cpu - g64).abs().max()))
+    assert float((g_gpu - g_cpu).abs().max()) <= bound
+
+
+def test_nonlinear_solve_on_gpu_matches_cpu(cuda):
+    """The FV-Newton oracle at 32^2 on the card against the CPU: within
+    1e-5 of max|x|, or three times the CPU float32 result's own distance
+    from float64."""
+    from pde_surrogate_torch.solvers.fd_darcy import solve_nonlinear_darcy
+    K = torch.from_numpy(sample_kle(1, 32, 64, rng=3)[0])
+    on_gpu = solve_nonlinear_darcy(K.to(cuda)).cpu().double()
+    on_cpu = solve_nonlinear_darcy(K).double()
+    own = float((on_cpu - solve_nonlinear_darcy(K.double())).abs().max())
+    bound = max(1e-5 * float(on_cpu.abs().max()), 3 * own)
+    assert float((on_gpu - on_cpu).abs().max()) <= bound
+    torch.testing.assert_close(on_gpu[0, :, 0], torch.ones(32,
+                               dtype=torch.float64), atol=1e-6, rtol=0)
+
+
+def test_zoom_lbfgs_epoch_on_gpu_matches_cpu(cuda):
+    """One zoom L-BFGS epoch (20 steps) of the FC loss in float64: the
+    iterate, the loss and the loss evaluations of the card equal the
+    CPU's (1e-8 of max|x|)."""
+    from pde_surrogate_torch.models.cppn import CPPN
+    from pde_surrogate_torch.ops import darcy as td
+    from pde_surrogate_torch.train.lbfgs import (FlatParams, lbfgs_optimizer,
+                                                 make_lbfgs_epoch)
+
+    def run(device):
+        torch.manual_seed(0)
+        model = CPPN(2, 3, 16, 3).to(device, torch.float64)
+        flat = FlatParams(model)
+        x = torch.from_numpy(np.random.default_rng(1).random((64, 2))).to(
+            device)
+        K = torch.ones(64, 1, dtype=torch.float64, device=device)
+        opt = lbfgs_optimizer(learning_rate=None)
+        params = flat.vector()
+        epoch = make_lbfgs_epoch(
+            lambda v: td.mixed_residual_fc((model, flat.unflatten(v)), x, K),
+            opt)
+        params, state, loss = epoch(params, opt.init(params))
+        return params.cpu(), float(loss), state.evals
+
+    p_gpu, l_gpu, e_gpu = run(cuda)
+    p_cpu, l_cpu, e_cpu = run("cpu")
+    assert e_gpu == e_cpu
+    assert float((p_gpu - p_cpu).abs().max()) <= 1e-8 * float(
+        p_cpu.abs().max())
+    assert abs(l_gpu - l_cpu) <= 1e-8 * abs(l_cpu)
