@@ -15,7 +15,10 @@
 5. The finite-volume objectives and their in-loss PCG on the card against
    the CPU at 64^2, B=32, 64 CG iterations (``[fvcg]``); the FC solver's
    loss and parameter gradient at full width (``[fc]``); the FV-Newton
-   oracle of the nonlinear law at 64^2 with its wall time (``[nonlinear]``).
+   oracle of the nonlinear law at 64^2 with its wall time (``[nonlinear]``);
+   the conditional Glow at its reference width (enc [3,4,4], flow [6,6,6])
+   at 64^2, B=8: density, generate and the reverse-KL loss and gradient
+   under sobel and fvcg (``[glow]``).
 6. Every path at full width, each driven through its CLI with the kernel
    launch counts zeroed just before and read just after: make_dataset
    (labels by the kernel); DenseED [6,8,6]/16/48 at 64^2: label-free
@@ -29,10 +32,15 @@
    widths on kle512 test field 8 (the kernel labels the 1000-field test
    set): the FC solver (CPPN 512x8), the conv-decoder solver and the
    conv-decoder solver with the nonlinear law (its FV-Newton oracle), each
-   with a 300-step Adam warmup and 3 zoom L-BFGS epochs.
+   with a 300-step Adam warmup and 3 zoom L-BFGS epochs; the cGlow at its
+   reference width on kle512 at 64^2 in a fresh data dir: 2 epochs of
+   reverse-KL training with --data-init (the kernel labels the val and
+   the train split), predict_cglow, and post_cglow's five UQ tasks on a
+   512-field Monte-Carlo set that the kernel labels.
 7. ms per training step by CUDA events and peak memory for each objective,
-   with and without the in-loss CG, and the 128^2 fvcg recipe; kernel
-   launches and device busy time of one step from torch.profiler.
+   with and without the in-loss CG, the 128^2 fvcg recipe and the cGlow's
+   reverse-KL step (sobel, fvcg); kernel launches and device busy time of
+   one step from torch.profiler.
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Any failed check raises
 and the script exits non-zero without that line; so does a machine without
@@ -41,6 +49,7 @@ CUDA or a directory without the package.
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import shutil
@@ -389,6 +398,137 @@ def phase_nonlinear(n: int = 64):
     check(bc <= 1e-6, "nonlinear solve violates its boundary conditions")
 
 
+GLOW_WIDTH = dict(enc_blocks=[3, 4, 4], flow_blocks=[6, 6, 6])
+
+
+def glow_model(device, dtype=torch.float32, imsize: int = 64, **width):
+    """The cGlow at its reference width (dense coupling, growth 16, init
+    features 48, LU 1x1 convs) with weights drawn from seed 0; the
+    zero-initialised Conv2dZeros kernels get N(0, 1e-3^2) weights from a
+    seeded numpy stream, so that every coupling net acts on the output.
+    (At N(0, 1e-2^2) the 18 reverse layers blow the fields up to ~5e10,
+    where the CPU's own f32 result lies 4.5e-5 from float64: no test of
+    agreement.)"""
+    from pde_surrogate_torch.models.flow import Conv2dZeros
+    from pde_surrogate_torch.models.glow import MultiScaleCondGlow
+    model = MultiScaleCondGlow(imsize, 1, 3, **(width or GLOW_WIDTH), seed=0)
+    rng = np.random.default_rng(0)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, Conv2dZeros):
+                m.conv.weight.copy_(torch.from_numpy(rng.normal(
+                    0, 1e-3, tuple(m.conv.weight.shape)).astype(np.float32)))
+    return model.to(device, dtype)
+
+
+def glow_outputs(device, dtype=torch.float32, bsz: int = 8, imsize: int = 64,
+                 n_cg: int = 64, **width) -> dict:
+    """Density log p of a seeded y, generate's output and log p from fixed
+    eps, and the reverse-KL loss with its parameter gradient under sobel
+    and fvcg, on kle512 K; BatchNorm in train mode, as the training step
+    runs it (at init the running stats do not normalise the encoder's
+    features, and the reverse flow of the perturbed heads overflows)."""
+    from pde_surrogate_torch.data.grf import sample_kle
+    from pde_surrogate_torch.ops.filters import SobelFilter
+    from pde_surrogate_torch.train.glow_trainer import reverse_kl_objective
+    model = glow_model(device, dtype, imsize, **width)
+    rng = np.random.default_rng(1)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device, dtype)
+    K = t(sample_kle(bsz, imsize, 512, rng=13)[:, None])
+    y = t(rng.normal(0, 0.3, (bsz, 3, imsize, imsize)))
+    eps = [t(rng.normal(size=(bsz,) + s)) for s in model.z_shapes]
+    out = {}
+    model.train()
+    with torch.no_grad():
+        out["density log p"] = model(y, K)[1].double().cpu()
+        y_gen, logp = model.generate(K, eps_list=eps)
+        out["generate y"], out["generate log p"] = (y_gen.double().cpu(),
+                                                    logp.double().cpu())
+    sobel = SobelFilter(imsize)
+    for physics in ("sobel", "fvcg"):
+        model.zero_grad(set_to_none=True)
+        y_gen, ll = model.generate(K, eps_list=eps)
+        loss = reverse_kl_objective(K, y_gen, ll, sobel, 150.0, 50.0,
+                                    3 * imsize * imsize, physics,
+                                    fvcg_iters=n_cg)["loss"]
+        loss.backward()
+        out[f"{physics} loss"] = loss.detach().double().cpu().reshape(1)
+        out[f"{physics} grad"] = torch.cat([
+            p.grad.flatten() for p in model.parameters()
+            if p.grad is not None]).double().cpu()
+    return out
+
+
+def phase_glow_parity():
+    """The cGlow at full width, 64^2, B=8, on the card against the CPU:
+    density log p, generate's log p and the reverse-KL losses within 1e-5
+    relative; generate's output and the parameter gradients within 1e-5 of
+    their largest magnitude, or three times the CPU f32 result's own
+    distance from float64."""
+    tic = time.perf_counter()
+    on_gpu = glow_outputs("cuda")
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - tic
+    on_cpu = glow_outputs("cpu")
+    f64 = glow_outputs("cpu", torch.float64)
+    log(f"[glow] enc [3,4,4] flow [6,6,6] 64^2 B=8: card {gpu_s:.2f} s, "
+        f"CPU f32 and f64 {time.perf_counter() - tic - gpu_s:.2f} s")
+    for name, cpu in on_cpu.items():
+        gpu = on_gpu[name]
+        check(bool(torch.isfinite(gpu).all()), f"[glow] {name} not finite")
+        if "log p" in name or "loss" in name:
+            rel = float(((gpu - cpu).abs() / cpu.abs()).max())
+            log(f"[glow] {name}: max {float(cpu.abs().max()):.6e}, card vs "
+                f"CPU {rel:.2e} relative (1e-5; CPU f32 vs f64 "
+                f"{float(((cpu - f64[name]).abs() / cpu.abs()).max()):.2e})")
+            check(rel <= 1e-5, f"[glow] {name}: card off the CPU by {rel}")
+        else:
+            scale = float(cpu.abs().max())
+            err = float((gpu - cpu).abs().max()) / scale
+            own = float((cpu - f64[name]).abs().max()) / scale
+            bound = max(1e-5, 3 * own)
+            log(f"[glow] {name} ({cpu.numel()} values): max|card-CPU| "
+                f"{err:.2e} of the max ({bound:.2e}; CPU f32 vs f64 "
+                f"{own:.2e})")
+            check(err <= bound, f"[glow] {name}: card off the CPU by {err}")
+
+
+def glow_step_fn(physics: str, n_cg: int | None, bsz: int = 32):
+    """One reverse-KL step of the reference-width cGlow at 64^2 on a batch
+    of ``bsz`` kle512 fields (f32, TF32 off, NaN guard on)."""
+    from pde_surrogate_torch.data.grf import sample_kle
+    from pde_surrogate_torch.ops.filters import SobelFilter
+    from pde_surrogate_torch.train.glow_trainer import (create_glow_state,
+                                                        make_reverse_kl_step)
+    model = glow_model("cuda")
+    state = create_glow_state(model, lr_max=1.5e-3, total_steps=1000, seed=1)
+    step = make_reverse_kl_step(state, SobelFilter(64), 150.0, 50.0,
+                                3 * 64 * 64, physics=physics,
+                                fvcg_iters=n_cg)
+    x = torch.from_numpy(sample_kle(bsz, 64, 512, rng=3))[:, None].cuda()
+    return lambda: step(x)
+
+
+GLOW_STEPS = [("sobel", None), ("fvcg n_cg=64", 64)]
+
+
+def phase_glow_step_times():
+    """ms per reverse-KL step (CUDA events, 10 steps after 3 warm-up
+    steps) and peak device memory, sobel and fvcg (64 CG iterations)."""
+    for label, n_cg in GLOW_STEPS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fn = glow_step_fn(label.split()[0], n_cg)
+        ms = cuda_ms(fn, reps=10, warmup=3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        log(f"[step] cglow reverse-KL {label}: enc [3,4,4] flow [6,6,6] "
+            f"64^2 batch 32 f32: {ms:.3f} ms/step ({32 / ms * 1e3:.1f} "
+            f"samples/s), peak memory {peak:.1f} MiB")
+        del fn
+
+
 class MainPath:
     """Drives each path through the CLIs in one temporary tree and counts
     K1's launches per path (zeroed just before, read just after)."""
@@ -542,6 +682,7 @@ class MainPath:
         self.solve("solve_conv", "solve_conv_mixed_residual", data3)
         self.solve("solve_conv --nonlinear", "solve_conv_mixed_residual",
                    data3, "--nonlinear")
+        self.glow()
         total = sum(self.launches.values())
         log(f"[main] K1 launches by path: {self.launches}; total {total}")
         return total
@@ -575,6 +716,127 @@ class MainPath:
               f"{label}: losses or rel-L2 not finite")
         check(losses[-1] < logger["adam_loss"],
               f"{label}: L-BFGS did not go below the Adam warmup's loss")
+
+    # the cGlow paths' sizes (the CPU rehearsal of the script shrinks them)
+    GLOW_DEVICE, GLOW_N, GLOW_NTRAIN, GLOW_NTEST, GLOW_NMC = (
+        "cuda", 64, 512, 128, 512)
+    GLOW_WIDTH: list[str] = []
+
+    def glow_flags(self) -> list[str]:
+        return ["--imsize", str(self.GLOW_N), "--kle", "512", "--ntrain",
+                str(self.GLOW_NTRAIN), "--ntest", str(self.GLOW_NTEST),
+                "--batch-size", "32", "--test-batch-size", "64",
+                "--ckpt-freq", "1", "--no-plot", "--device",
+                self.GLOW_DEVICE, *self.GLOW_WIDTH]
+
+    def glow(self):
+        """The cGlow at its reference width (enc [3,4,4], flow [6,6,6],
+        dense coupling, LU, beta 150, weight bound 50, lr 1.5e-3, batch 32)
+        on kle512 at 64^2 in a fresh data dir: 2 epochs with --data-init
+        (the kernel labels the val split and, for the data-init, the train
+        split), predict_cglow on the val split, then post_cglow (the kernel
+        labels the 512-field Monte-Carlo set)."""
+        import contextlib
+
+        import scipy.io
+
+        from pde_surrogate_torch.cli import post_cglow, predict_cglow
+        from pde_surrogate_torch.cli import train_cglow_reverse_kl as train
+        from pde_surrogate_torch.data.hdf5 import dataset_shapes
+        data = os.path.join(self.tmp, "data4")
+        exp = os.path.join(self.tmp, "cglow")
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(_Tee(sys.stdout, printed)):
+            state, logger = self.drive("train cglow", lambda: train.main(
+                self.glow_flags() + ["--epochs", "2", "--data-init",
+                                     "--data-dir", data, "--exp-dir", exp]),
+                needs_k1=True)
+        (run_dir,) = [r for r, _, files in os.walk(exp) if "args.txt" in files]
+        with open(os.path.join(run_dir, "training", "metrics.jsonl")) as f:
+            epochs = [json.loads(line) for line in f]
+        log(f"[main] train cglow: first step loss "
+            f"{epochs[0]['loss_first_step']:.4f}, epoch mean losses "
+            f"{[round(e['loss_train'], 4) for e in epochs]}, epoch seconds "
+            f"{[round(e['epoch_seconds'], 3) for e in epochs]}, samples/s "
+            f"{[round(e['samples_per_sec'], 1) for e in epochs]}, skipped "
+            f"steps {[e['skipped_steps'] for e in epochs]}; R2 "
+            f"{logger['r2_test'][-1]}, test entropy "
+            f"{logger['entropy_test'][-1]:.4f}")
+        check("Finished data initialization" in printed.getvalue(),
+              "train cglow: no data initialization")
+        check(np.isfinite(logger["loss_train"]).all()
+              and np.isfinite(epochs[0]["loss_first_step"]),
+              "train cglow: training losses not finite")
+        check(np.isfinite(np.asarray(logger["r2_test"])).all(),
+              "train cglow: R2 not finite")
+        check(os.path.isfile(os.path.join(run_dir, "checkpoints",
+                                          "model_epoch2.pt")),
+              "train cglow: checkpoint missing")
+
+        n, ntest = self.GLOW_N, self.GLOW_NTEST
+        val = os.path.join(data, f"{n}x{n}", "kle512_lhs1000_val.hdf5")
+        pred_path = os.path.join(self.tmp, "predict_cglow.hdf5")
+        mean, std, rel_l2, r2 = self.drive(
+            "predict_cglow", lambda: predict_cglow.main([
+                "--device", self.GLOW_DEVICE, "--run-dir", run_dir,
+                "--input", val, "--output", pred_path]))
+        log(f"[main] predict_cglow: rel-L2 {rel_l2}, R2 {r2}, mean std "
+            f"{float(np.mean(std)):.4e}")
+        check(mean.shape == std.shape == (ntest, 3, n, n),
+              f"predict_cglow shapes {mean.shape} {std.shape}")
+        check(np.isfinite(std).all() and np.isfinite(rel_l2).all()
+              and np.isfinite(r2).all(),
+              "predict_cglow: output_std or metrics not finite")
+        check(dataset_shapes(pred_path) == {
+            "input": (ntest, 1, n, n), "output": (ntest, 3, n, n),
+            "output_std": (ntest, 3, n, n)}, "predict_cglow file shapes")
+
+        uq = self.drive("post_cglow", lambda: post_cglow.main([
+            "--device", self.GLOW_DEVICE, "--run-dir", run_dir,
+            "--n-monte-carlo", str(self.GLOW_NMC), "--ntest", str(ntest)]),
+            needs_k1=True)
+        log(f"[main] post_cglow: seconds per task "
+            f"{ {k: round(v, 3) for k, v in uq.seconds.items()} }")
+        post = uq.post_dir
+        arrays = {name: np.loadtxt(os.path.join(post, name)) for name in (
+            "nrmse_test.txt", "r2_test.txt", "log_stats.txt",
+            "uncertainty_quality/reliability_diagram.txt")}
+        for name in ("pred", "target", "locations"):
+            arrays[f"dist_estimate/{name}.npy"] = np.load(
+                os.path.join(post, "dist_estimate", f"{name}.npy"))
+        mat = scipy.io.loadmat(os.path.join(post, "out_stats",
+                                            "out_stats.mat"))
+        for key in ("sample_mean", "sample_var", "y_pred_EE", "y_pred_VE",
+                    "y_pred_EV", "y_pred_VV"):
+            arrays[f"out_stats.mat:{key}"] = mat[key]
+        at_x = [f for f in os.listdir(os.path.join(post, "predict_at_x"))
+                if f.endswith(".npz")]
+        for f in at_x:
+            with np.load(os.path.join(post, "predict_at_x", f)) as z:
+                arrays.update({f"{f}:{k}": z[k] for k in z.files})
+        bad = [k for k, a in arrays.items() if not np.isfinite(a).all()]
+        log(f"[main] post_cglow: {len(arrays)} arrays in {post}; R2 "
+            f"{arrays['r2_test.txt']}, reliability (p=0.01..0.99, u) "
+            f"{np.round(arrays['uncertainty_quality/reliability_diagram.txt'][:, 1], 3)}")
+        check(len(at_x) == 6 and not bad,
+              f"post_cglow: missing or non-finite artefacts {bad}")
+        check(mat["y_pred_EE"].shape == (3, n, n), "out_stats.mat shapes")
+
+
+class _Tee(io.TextIOBase):
+    """Writes to every stream it holds."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, s):
+        for st in self.streams:
+            st.write(s)
+        return len(s)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
 
 
 STEP_CASES = [
@@ -688,12 +950,14 @@ def phase_solver_step_times():
 
 
 def phase_step_profile():
-    """One step of sobel and of fvcg (n_cg=64) at 64^2, and one Adam step
-    of each solver, under torch.profiler: device kernels launched and their
-    summed time against the step's wall time (CUDA events)."""
+    """One step of sobel and of fvcg (n_cg=64) at 64^2, one Adam step of
+    each solver and one cGlow reverse-KL step (sobel, batch 32), under
+    torch.profiler: device kernels launched and their summed time against
+    the step's wall time (CUDA events)."""
     from torch.profiler import ProfilerActivity, profile
     cases = [(c[0], lambda c=c: _step_fn(*c[1:])) for c in STEP_CASES[:2]]
     cases += [(label, lambda f=fn: f) for label, fn in solver_steps()]
+    cases += [("cglow sobel", lambda: glow_step_fn("sobel", None))]
     for label, make in cases:
         fn = make()
         for _ in range(3):
@@ -736,6 +1000,7 @@ def main() -> int:
     phase_fvcg_parity()
     phase_fc_parity()
     phase_nonlinear()
+    phase_glow_parity()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         launches = MainPath(tmp).run()
@@ -743,6 +1008,7 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_step_times()
     phase_solver_step_times()
+    phase_glow_step_times()
     phase_step_profile()
 
     kernels = [{

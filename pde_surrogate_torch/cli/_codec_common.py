@@ -5,7 +5,9 @@ generated on demand (inputs on the host, labels by the device PCG solver),
 Adam + OneCycle, an epoch loop of label-free physics steps or supervised
 MSE steps, a test pass with rel-L2 / R^2 / flux-pressure consistency,
 checkpoints with meta, warm starts (``--init-from``), label-free checkpoint
-selection, the stats dump and the LR-range test (``--find-lr``).
+selection, the stats dump and the LR-range test (``--find-lr``); the
+dataset files of the cGlow CLIs (``resolve_dataset_files``) and of its UQ
+suite (``uq_dataset_files``).
 """
 
 from __future__ import annotations
@@ -34,8 +36,9 @@ from ..utils.config import select_device
 from ..utils.metrics import r2_score
 from .make_dataset import solve_labels
 
-__all__ = ["ensure_dataset", "resolve_dataset_files", "reject_unported",
-           "run_codec_training", "run_find_lr", "save_stats"]
+__all__ = ["ensure_dataset", "resolve_dataset_files", "uq_dataset_files",
+           "reject_unported", "run_codec_training", "run_find_lr",
+           "save_stats"]
 
 
 def _generate_inputs(data: str, n: int, imsize: int, kle: int, seed: int):
@@ -135,6 +138,36 @@ def resolve_dataset_files(args, need_train_output: bool = False):
     ensure_dataset(test, family, max(args.ntest, 1), args.imsize, kle,
                    seed=20_000 + kle, with_output=True, device=args.device)
     return train, test
+
+
+def uq_dataset_files(run_args, n_mc: int, ntest: int, device="cuda"):
+    """Monte-Carlo and labelled val files of the UQ suite (post_cglow),
+    family-aware like ``resolve_dataset_files``; the MC design has its own
+    seed stream (40_000 + kle).  ``run_args`` is a trained run's args.txt
+    namespace (runs without ``data`` are GRF).  Labels are solved on
+    ``device``."""
+    data = getattr(run_args, "data", "grf_kle512")
+    d, n = run_args.data_dir, run_args.imsize
+    if data == "grf_kle512":
+        kle = getattr(run_args, "kle", None) or 512
+        mc = dataset_path(d, n, f"kle{kle}_lhs10000_monte_carlo")
+        test = dataset_path(d, n, f"kle{kle}_lhs1000_val")
+        family = "grf"
+    elif data == "channelized":
+        mc = dataset_path(d, n, "channel_ng64_n10000_mc")
+        test = dataset_path(d, n, "channel_ng64_n512_test")
+        kle, family = 0, "channelized"
+    elif data == "warped_grf":
+        mc = dataset_path(d, n, "warped_gp_ng64_n10000_mc")
+        test = dataset_path(d, n, "warped_gp_ng64_n512_test")
+        kle, family = 0, "warped_grf"
+    else:
+        raise ValueError(f"unknown data option: {data}")
+    ensure_dataset(mc, family, n_mc, n, kle, seed=40_000 + kle,
+                   with_output=True, device=device)
+    ensure_dataset(test, family, ntest, n, kle, seed=20_000 + kle,
+                   with_output=True, device=device)
+    return mc, test
 
 
 def reject_unported(args):

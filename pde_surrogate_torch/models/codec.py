@@ -127,15 +127,27 @@ class DenseBlock(nn.Module):
 class Transition(nn.Module):
     """Down (1x1 conv, strided 3x3 conv) or up (1x1 conv, upsample, 3x3
     conv) transition with the reference's bottleneck (models/codec.py:89-160).
+
+    ``bottleneck=False`` (down only, the glow encoder's first transition):
+    BN -> ReLU -> strided 3x3 ``conv1``.
     """
 
     def __init__(self, in_features: int, out_features: int, down: bool,
-                 drop_rate: float = 0.0, upsample: str = "nearest"):
+                 drop_rate: float = 0.0, upsample: str = "nearest",
+                 bottleneck: bool = True):
         super().__init__()
+        if not (bottleneck or down):
+            raise ValueError("up transitions without the bottleneck (a "
+                             "transposed conv) are not ported")
         self.down = down
+        self.bottleneck = bottleneck
         self.drop_rate = drop_rate
         self.upsample = _UPSAMPLE[upsample]
         self.norm1 = BatchNorm2d(in_features)
+        if not bottleneck:
+            self.conv1 = _conv(in_features, out_features, 3, stride=2,
+                               padding=1)
+            return
         self.conv1 = _conv(in_features, out_features, 1)
         self.norm2 = BatchNorm2d(out_features)
         if down:
@@ -146,10 +158,11 @@ class Transition(nn.Module):
 
     def forward(self, x):
         x = self.conv1(F.relu(self.norm1(x)))
-        x = F.relu(self.norm2(x))
-        if not self.down:
-            x = self.upsample(x)
-        x = self.conv2(x)
+        if self.bottleneck:
+            x = F.relu(self.norm2(x))
+            if not self.down:
+                x = self.upsample(x)
+            x = self.conv2(x)
         if self.drop_rate > 0:
             x = F.dropout(x, self.drop_rate, self.training)
         return x

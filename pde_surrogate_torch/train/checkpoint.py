@@ -3,7 +3,9 @@
 Counterpart of pde_surrogate_tpu/train/checkpoint.py.  A checkpoint is two
 files per epoch in ``run_dir/checkpoints``:
 
-  * ``model_epoch{N}.pt``   — ``{"model", "optimizer", "step"}`` state dicts;
+  * ``model_epoch{N}.pt``   — ``{"model", "optimizer"}`` state dicts and
+    the state's counters (``step``; a ``GlowState`` adds ``updates`` and
+    ``notfinite_count``);
   * ``model_epoch{N}.json`` — metadata (epoch, logger metric lists,
     flux-pressure consistency history).
 
@@ -45,14 +47,22 @@ def _atomic_write(path: str, data: bytes | str):
     os.replace(tmp, path)
 
 
+def _counters(state) -> dict[str, int]:
+    """The state's step counters: ``step``, plus a ``GlowState``'s
+    ``COUNTERS`` (applied updates, consecutive non-finite steps)."""
+    return {name: int(getattr(state, name))
+            for name in getattr(state, "COUNTERS", ("step",))}
+
+
 def save_checkpoint(ckpt_dir: str, epoch: int, state,
                     meta: dict | None = None) -> str:
-    """Write ``state`` (a ``CodecState``) and the JSON-able ``meta``."""
+    """Write ``state`` (a ``CodecState`` or ``GlowState``) and the JSON-able
+    ``meta``."""
     os.makedirs(ckpt_dir, exist_ok=True)
     buf = io.BytesIO()
     torch.save({"model": state.model.state_dict(),
                 "optimizer": state.optimizer.state_dict(),
-                "step": state.step}, buf)
+                **_counters(state)}, buf)
     path = checkpoint_file(ckpt_dir, epoch)
     _atomic_write(path, buf.getvalue())
     if meta is not None:
@@ -86,7 +96,8 @@ def restore_checkpoint(ckpt_dir: str, epoch: int, state,
     ckpt = _load(ckpt_dir, epoch, state.model)
     state.model.load_state_dict(ckpt["model"])
     state.optimizer.load_state_dict(ckpt["optimizer"])
-    state.step = int(ckpt["step"])
+    for name in _counters(state):
+        setattr(state, name, int(ckpt[name]))
     if not with_meta:
         return state
     meta = {}

@@ -17,7 +17,8 @@ import sys
 import numpy as np
 import torch
 
-__all__ = ["int_list", "BaseParser", "seed_everything", "select_device"]
+__all__ = ["int_list", "BaseParser", "seed_everything", "select_device",
+           "make_generator"]
 
 
 def int_list(s):
@@ -36,6 +37,16 @@ def seed_everything(seed: int | None) -> int:
     np.random.seed(seed % (2 ** 32))
     torch.manual_seed(seed)
     return seed
+
+
+def make_generator(device, *entropy: int) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded by a pure function of the
+    integers ``entropy`` (e.g. (seed, step)): the JAX package's
+    ``fold_in`` counters, so a resumed run draws what an uninterrupted
+    run draws."""
+    seed = int(np.random.SeedSequence([int(e) for e in entropy])
+               .generate_state(1)[0])
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def select_device(name: str = "cuda") -> torch.device:

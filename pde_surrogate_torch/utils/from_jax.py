@@ -5,8 +5,9 @@ The codec (DenseED and the solver's Decoder) is the reverse of
 dicts of numpy arrays (flax ``params`` and ``batch_stats``) become a torch
 ``state_dict`` with the reference module names.  The CPPNs keep the flax
 layer names, and a Dense ``kernel`` (in, out) becomes a ``weight``
-(out, in).  Imports nothing of the JAX package; the parity tests use it to
-run both models on the same weights.
+(out, in).  The conditional Glow keeps the flax module names too
+(``glow_state_dict_from_jax``).  Imports nothing of the JAX package; the
+parity tests use it to run both models on the same weights.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ import re
 import numpy as np
 import torch
 
-__all__ = ["codec_state_dict_from_jax", "cppn_state_dict_from_jax"]
+__all__ = ["codec_state_dict_from_jax", "cppn_state_dict_from_jax",
+           "glow_state_dict_from_jax"]
 
 # flax module names are the reference names lowercased
 _TOP = [(re.compile(r"in_conv$"), lambda m: "In_conv"),
@@ -75,6 +77,39 @@ def codec_state_dict_from_jax(params, batch_stats) -> dict[str, torch.Tensor]:
         sd[f"{name}.{key}"] = torch.from_numpy(value.copy())
         sd.setdefault(f"{name}.num_batches_tracked",
                       torch.tensor(0, dtype=torch.long))
+    return sd
+
+
+def glow_state_dict_from_jax(params, batch_stats,
+                             constants) -> dict[str, torch.Tensor]:
+    """flax (params, batch_stats, constants) of a MultiScaleCondGlow ->
+    torch state_dict.  The port's glow modules carry the flax names joined
+    by dots; conv kernels (kH, kW, I, O) -> weight (O, I, kH, kW); a
+    BatchNorm's ``scale`` -> ``weight`` and its ``mean`` / ``var`` -> the
+    running buffers; every other leaf (ActNorm ``weight`` / ``bias``,
+    ``Conv2dZeros.scale``, the 1x1 convs' ``weight``, ``l``, ``u``,
+    ``log_s``, and the constants ``p`` / ``sign_s``) keeps its name and
+    shape."""
+    sd: dict[str, torch.Tensor] = {}
+    bn = {".".join(path) for path, _, _ in _flatten(batch_stats)}
+    for path, leaf, value in _flatten(params):
+        name = ".".join(path)
+        if leaf == "kernel":
+            value = value.transpose(3, 2, 0, 1)
+            leaf = "weight"
+        elif leaf == "scale" and name in bn:
+            leaf = "weight"
+        sd[".".join([*path, leaf])] = torch.from_numpy(np.array(value))
+    for path, leaf, value in _flatten(batch_stats):
+        name = ".".join(path)
+        key = {"mean": "running_mean", "var": "running_var"}.get(leaf)
+        if key is None:
+            raise ValueError(f"unrecognized flax batch stat: {name}/{leaf}")
+        sd[f"{name}.{key}"] = torch.from_numpy(value.copy())
+        sd.setdefault(f"{name}.num_batches_tracked",
+                      torch.tensor(0, dtype=torch.long))
+    for path, leaf, value in _flatten(constants):
+        sd[".".join([*path, leaf])] = torch.from_numpy(value.copy())
     return sd
 
 

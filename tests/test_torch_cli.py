@@ -6,8 +6,10 @@ make_dataset -> train_codec_mixed_residual -> predict_codec at a tiny size
 --find-lr, the label attach path of ensure_dataset, the options that are
 not ported yet, the run-dir names against the JAX parsers, the
 single-instance solvers (FC and conv decoder, linear and nonlinear, their
-test sets, their divergence guard), and a check that no module of the
-port (nor chip_smoke.py) imports JAX or the JAX package.
+test sets, their divergence guard), the cGlow chain (train with
+--data-init -> predict_cglow -> post_cglow, a resume, the run-dir names
+and the squeeze order against the JAX parser), and a check that no module
+of the port (nor chip_smoke.py) imports JAX or the JAX package.
 """
 
 import ast
@@ -19,13 +21,17 @@ import sys
 
 import numpy as np
 import pytest
+import scipy.io
 import torch
 
 from pde_surrogate_torch.cli import _codec_common
 from pde_surrogate_torch.cli import make_dataset as t_make
+from pde_surrogate_torch.cli import post_cglow as t_post
+from pde_surrogate_torch.cli import predict_cglow as t_pglow
 from pde_surrogate_torch.cli import predict_codec as t_predict
 from pde_surrogate_torch.cli import solve_conv_mixed_residual as t_conv
 from pde_surrogate_torch.cli import solve_fc_mixed_residual as t_fc
+from pde_surrogate_torch.cli import train_cglow_reverse_kl as t_glow
 from pde_surrogate_torch.cli import train_codec_max_likelihood as t_mle
 from pde_surrogate_torch.cli import train_codec_mixed_residual as t_train
 from pde_surrogate_torch.cli._codec_common import ensure_dataset
@@ -529,3 +535,162 @@ def test_port_imports_no_jax_at_run_time():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+# --- the conditional Glow --------------------------------------------------
+
+GLOW = ["--imsize", "16", "--kle", "512", "--enc-blocks", "2,2,2",
+        "--flow-blocks", "2,2,2", "--ntrain", "16", "--ntest", "8",
+        "--batch-size", "8", "--test-batch-size", "8", "--ckpt-freq", "1",
+        "--no-plot", "--device", "cpu"]
+
+
+def _glow_run(tmp_path, *extra, exp="exp"):
+    out = t_glow.main(GLOW + ["--data-dir", str(tmp_path / "d"),
+                              "--exp-dir", str(tmp_path / exp), *extra])
+    (run,) = [p.parent for p in (tmp_path / exp).rglob("args.txt")]
+    return out, run
+
+
+@pytest.mark.parametrize("argv", [
+    [], ["--imsize", "64", "--kle", "512", "--data-init", "--epochs", "200"],
+    ["--physics", "sobel_fvcg", "--fvcg-weight", "50", "--fvcg-flux-weight",
+     "1", "--fvcg-iters", "32", "--imsize", "16"],
+    ["--physics", "fvcg", "--fvcg-iters", "16", "--data", "channelized",
+     "--debug"]], ids=["defaults", "canonical", "hybrid", "fvcg"])
+def test_cglow_run_dir_names_match_jax(tmp_path, argv):
+    from pde_surrogate_tpu.cli import train_cglow_reverse_kl as j_glow
+    j_args = j_glow.Parser().parse(argv + ["--exp-dir", str(tmp_path / "j")])
+    t_args = t_glow.Parser().parse(argv + ["--exp-dir", str(tmp_path / "t")])
+    assert (os.path.relpath(t_args.run_dir, tmp_path / "t")
+            == os.path.relpath(j_args.run_dir, tmp_path / "j"))
+    assert t_args.squeeze_order == j_args.squeeze_order == "subpixel"
+
+
+def test_cglow_weights_without_effect_exit(tmp_path):
+    """Anchor weights under the pure fvcg objective would change nothing:
+    both parsers stop, and --n-devices > 1 names ROADMAP E3."""
+    from pde_surrogate_tpu.cli import train_cglow_reverse_kl as j_glow
+    argv = ["--physics", "fvcg", "--fvcg-weight", "50"]
+    for parser, exp in ((j_glow.Parser(), "j"), (t_glow.Parser(), "t")):
+        with pytest.raises(SystemExit):
+            parser.parse(argv + ["--exp-dir", str(tmp_path / exp)])
+    with pytest.raises(NotImplementedError, match="E3"):
+        t_glow.Parser().parse(["--n-devices", "2", "--exp-dir",
+                               str(tmp_path / "t")])
+    assert not (tmp_path / "t").exists()
+
+
+def _write_args(run, **kw):
+    run.mkdir(parents=True)
+    (run / "args.txt").write_text(json.dumps(kw))
+
+
+@pytest.mark.parametrize("source", ["legacy resume", "init-from"])
+def test_cglow_squeeze_order_inherited_like_jax(tmp_path, source):
+    """The squeeze order comes from the source run's args.txt: on resume
+    from a run dir made before the _im{N} suffix (which the resume finds),
+    or from --init-from; an explicit conflicting order raises."""
+    from pde_surrogate_tpu.cli import train_cglow_reverse_kl as j_glow
+    for exp in ("j", "t"):
+        if source == "legacy resume":
+            legacy = (tmp_path / exp / "cglow" / "reverse_kld" /
+                      "kle100_ntrain4096_ENC_blocks[3, 4, 4]_FLOW_blocks"
+                      "[6, 6, 6]_wb50.0_beta150.0_batch32_lr0.0015_epochs400")
+            _write_args(legacy, squeeze_order="reference")
+            argv = ["--imsize", "64", "--ckpt-epoch", "5"]
+        else:
+            _write_args(tmp_path / f"src_{exp}", squeeze_order="reference")
+            argv = ["--init-from", f"{tmp_path / f'src_{exp}'}:3"]
+        argv += ["--exp-dir", str(tmp_path / exp)]
+        j_args = j_glow.Parser().parse(argv) if exp == "j" else None
+        t_args = t_glow.Parser().parse(argv) if exp == "t" else None
+        args = j_args or t_args
+        assert args.squeeze_order == "reference"
+        if source == "legacy resume":
+            assert args.run_dir == str(legacy)
+        with pytest.raises(ValueError, match="conflicts"):
+            (j_glow if exp == "j" else t_glow).Parser().parse(
+                argv + ["--squeeze-order", "subpixel"])
+
+
+def test_cglow_train_predict_post_chain(tmp_path):
+    """train_cglow_reverse_kl (--data-init) -> predict_cglow -> post_cglow
+    on the CPU: finite losses and metrics, the predictive mean and std in
+    a file h5py reads, and every artefact of the five UQ tasks."""
+    import h5py
+    (state, logger), run = _glow_run(tmp_path, "--epochs", "1",
+                                     "--data-init")
+    assert state.step == state.updates == 2
+    assert np.isfinite(logger["loss_train"]).all()
+    assert np.isfinite(np.asarray(logger["r2_test"])).all()
+    assert run.name.endswith("_epochs1_im16_data_init")
+    assert (run / "checkpoints" / "model_epoch1.pt").is_file()
+    train = tmp_path / "d" / "16x16" / "kle512_lhs10000_train.hdf5"
+    assert th5.dataset_shapes(str(train))["output"] == (16, 3, 16, 16)
+
+    val = str(tmp_path / "d" / "16x16" / "kle512_lhs1000_val.hdf5")
+    out = tmp_path / "pred.hdf5"
+    mean, std, rel_l2, r2 = t_pglow.main([
+        "--device", "cpu", "--run-dir", str(run), "--input", val,
+        "--output", str(out), "--n-samples", "4", "--batch-size", "3"])
+    assert mean.shape == std.shape == (8, 3, 16, 16)
+    assert np.isfinite(std).all() and (std > 0).all()
+    assert np.isfinite(rel_l2).all() and np.isfinite(r2).all()
+    with h5py.File(out, "r") as f:
+        assert sorted(f) == ["input", "output", "output_std"]
+        np.testing.assert_array_equal(f["output_std"][()], std)
+        np.testing.assert_array_equal(f["output"][()], mean)
+        np.testing.assert_array_equal(f["input"][()],
+                                      th5.load_data(val, 8)[0])
+
+    uq = t_post.main(["--device", "cpu", "--run-dir", str(run),
+                      "--n-monte-carlo", "8", "--ntest", "8", "--n-samples",
+                      "3", "--var-samples", "2", "--batch-size", "4",
+                      "--n-pred", "2", "--num-loc", "3", "--plot-samples"])
+    post = run / "post_proc_epoch1"
+    assert uq.post_dir == str(post) and set(uq.seconds) == {
+        "predict_at_x", "dist", "test_metric", "reliability", "propagate"}
+    for name in ("nrmse_test.txt", "r2_test.txt", "log_stats.txt",
+                 "uncertainty_quality/reliability_diagram.txt"):
+        assert np.isfinite(np.loadtxt(post / name)).all(), name
+    assert np.load(post / "dist_estimate" / "pred.npy").shape == (8, 3, 3)
+    mat = scipy.io.loadmat(str(post / "out_stats" / "out_stats.mat"))
+    assert mat["y_pred_EE"].shape == (3, 16, 16)
+    (at_x,) = sorted((post / "predict_at_x").glob("*idx*.npz"))[:1]
+    with np.load(at_x) as z:
+        assert z["samples"].shape == (3, 3, 16, 16)
+    mc = tmp_path / "d" / "16x16" / "kle512_lhs10000_monte_carlo.hdf5"
+    assert th5.dataset_shapes(str(mc))["output"] == (8, 3, 16, 16)
+
+
+def test_cglow_resume_matches_uninterrupted(tmp_path):
+    """Resuming from epoch 1 redraws what the uninterrupted run drew: the
+    step noise is a function of (seed, step), the batches of (seed, epoch),
+    and the checkpoint holds the counters, Adam and the BN stats."""
+    (state, _), run = _glow_run(tmp_path, "--epochs", "2")
+    full = _weights(run, 2)
+    (state, logger), _ = _glow_run(tmp_path, "--epochs", "2", "--resume",
+                                   "--ckpt-epoch", "1")
+    assert state.step == state.updates == 4 and len(logger["loss_train"]) == 2
+    for k, v in full.items():
+        torch.testing.assert_close(state.model.state_dict()[k], v, rtol=0,
+                                   atol=1e-6, msg=k)
+
+
+@pytest.mark.parametrize("cli", [t_glow, t_pglow, t_post],
+                         ids=["train", "predict", "post"])
+def test_cglow_clis_default_to_cuda(tmp_path, cli):
+    """The cGlow entry points run on CUDA unless told otherwise and never
+    fall back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    if cli is t_glow:
+        assert cli.Parser().parse_args([]).device == "cuda"
+        argv = [a for a in GLOW if a not in ("--device", "cpu")] + [
+            "--exp-dir", str(tmp_path), "--data-dir", str(tmp_path / "d")]
+    else:
+        argv = ["--run-dir", str(tmp_path)] + (
+            ["--input", str(tmp_path / "x.hdf5")] if cli is t_pglow else [])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(argv)

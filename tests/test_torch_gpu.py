@@ -19,9 +19,13 @@ pytestmark = pytest.mark.gpu
 
 @pytest.fixture
 def cuda():
+    """The card with the port's numerics, as every entry point sets them:
+    TF32 off (torch's default runs cuDNN convolutions in TF32, ~1e-3
+    relative)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
+    from pde_surrogate_torch.utils.config import select_device
+    return select_device("cuda")
 
 
 @pytest.mark.parametrize("n,family,batch", [
@@ -192,3 +196,66 @@ def test_zoom_lbfgs_epoch_on_gpu_matches_cpu(cuda):
     assert float((p_gpu - p_cpu).abs().max()) <= 1e-8 * float(
         p_cpu.abs().max())
     assert abs(l_gpu - l_cpu) <= 1e-8 * abs(l_cpu)
+
+
+def _glow_outputs(device, dtype=torch.float32):
+    """A 32^2 cGlow (enc/flow blocks [2,2,2], seeded weights, the zero
+    heads perturbed by N(0, 0.01^2)) in train mode on kle64 K: density
+    log p of a seeded y, generate's output and log p from fixed eps, and
+    the reverse-KL loss and parameter gradient under sobel and fvcg (16
+    CG iterations)."""
+    from pde_surrogate_torch.models.flow import Conv2dZeros
+    from pde_surrogate_torch.models.glow import MultiScaleCondGlow
+    from pde_surrogate_torch.ops.filters import SobelFilter
+    from pde_surrogate_torch.train.glow_trainer import reverse_kl_objective
+    n, bsz = 32, 4
+    model = MultiScaleCondGlow(n, 1, 3, [2, 2, 2], [2, 2, 2], seed=0)
+    rng = np.random.default_rng(0)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, Conv2dZeros):
+                m.conv.weight.copy_(torch.from_numpy(rng.normal(
+                    0, 0.01, tuple(m.conv.weight.shape)).astype(np.float32)))
+    model = model.to(device, dtype).train()
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device, dtype)
+    K = t(sample_kle(bsz, n, 64, rng=2)[:, None])
+    y = t(rng.normal(0, 0.3, (bsz, 3, n, n)))
+    eps = [t(rng.normal(size=(bsz,) + s)) for s in model.z_shapes]
+    out = {}
+    with torch.no_grad():
+        out["density log p"] = model(y, K)[1]
+        out["generate y"], out["generate log p"] = model.generate(
+            K, eps_list=eps)
+    for physics in ("sobel", "fvcg"):
+        model.zero_grad(set_to_none=True)
+        y_gen, ll = model.generate(K, eps_list=eps)
+        loss = reverse_kl_objective(K, y_gen, ll, SobelFilter(n), 150.0,
+                                    50.0, 3 * n * n, physics,
+                                    fvcg_iters=16)["loss"]
+        loss.backward()
+        out[f"{physics} loss"] = loss.detach().reshape(1)
+        out[f"{physics} grad"] = torch.cat([p.grad.flatten() for p in
+                                            model.parameters()
+                                            if p.grad is not None])
+    return {k: v.double().cpu() for k, v in out.items()}
+
+
+def test_glow_on_gpu_matches_cpu(cuda):
+    """The [glow] bounds of chip_smoke.py: log p and the losses within 1e-5
+    relative; generate's output and the parameter gradients within 1e-5 of
+    their largest magnitude, or three times the CPU float32 result's own
+    distance from float64."""
+    on_gpu = _glow_outputs(cuda)
+    on_cpu = _glow_outputs("cpu")
+    f64 = _glow_outputs("cpu", torch.float64)
+    for name, cpu in on_cpu.items():
+        gpu = on_gpu[name]
+        assert torch.isfinite(gpu).all(), name
+        if "log p" in name or "loss" in name:
+            assert float(((gpu - cpu).abs() / cpu.abs()).max()) <= 1e-5, name
+        else:
+            scale = float(cpu.abs().max())
+            bound = max(1e-5 * scale, 3 * float((cpu - f64[name]).abs().max()))
+            assert float((gpu - cpu).abs().max()) <= bound, name
