@@ -262,7 +262,7 @@ class MultiScaleCondGlow(nn.Module):
                generator: torch.Generator | None = None, eps_list=None,
                temperature: float | None = None, max_fold: int = 512):
         """(n_samples, B, C, H, W) samples; default temperature 0.7 (the
-        drivers pass 1.0).  ``eps_list`` entries are (n_samples, B, C, H,
+        CLIs pass 1.0).  ``eps_list`` entries are (n_samples, B, C, H,
         W)."""
         if temperature is None:
             temperature = 0.7

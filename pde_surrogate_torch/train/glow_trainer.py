@@ -66,7 +66,7 @@ def create_glow_state(model, lr_max: float, total_steps: int,
                       div_factor: float = 2.0, pct_start: float = 0.3,
                       weight_decay: float = 0.0, seed: int = 0) -> GlowState:
     """Adam (coupled L2) + OneCycle around ``model`` (JAX
-    glow_trainer.py:53-70, whose drivers all keep the NaN guard on);
+    glow_trainer.py:53-70, whose CLIs all keep the NaN guard on);
     ``seed`` is the base of the per-step noise."""
     schedule = one_cycle_schedule(lr_max, total_steps, div_factor, pct_start)
     optimizer = _adam_l2(model.parameters(), schedule(0), weight_decay)
