@@ -18,7 +18,8 @@
    oracle of the nonlinear law at 64^2 with its wall time (``[nonlinear]``);
    the conditional Glow at its reference width (enc [3,4,4], flow [6,6,6])
    at 64^2, B=8: density, generate and the reverse-KL loss and gradient
-   under sobel and fvcg (``[glow]``).
+   under sobel and fvcg, with its heads at 1e-3 against the CPU and at
+   1e-2 against float64 (``[glow]``).
 6. Every path at full width, each driven through its CLI with the kernel
    launch counts zeroed just before and read just after: make_dataset
    (labels by the kernel); DenseED [6,8,6]/16/48 at 64^2: label-free
@@ -40,7 +41,7 @@
 7. ms per training step by CUDA events and peak memory for each objective,
    with and without the in-loss CG, the 128^2 fvcg recipe and the cGlow's
    reverse-KL step (sobel, fvcg); kernel launches and device busy time of
-   one step from torch.profiler.
+   one step from torch.profiler, and its conv and matmul FLOPs.
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Any failed check raises
 and the script exits non-zero without that line; so does a machine without
@@ -398,116 +399,67 @@ def phase_nonlinear(n: int = 64):
     check(bc <= 1e-6, "nonlinear solve violates its boundary conditions")
 
 
-GLOW_WIDTH = dict(enc_blocks=[3, 4, 4], flow_blocks=[6, 6, 6])
-
-
-def glow_model(device, dtype=torch.float32, imsize: int = 64, **width):
-    """The cGlow at its reference width (dense coupling, growth 16, init
-    features 48, LU 1x1 convs) with weights drawn from seed 0; the
-    zero-initialised Conv2dZeros kernels get N(0, 1e-3^2) weights from a
-    seeded numpy stream, so that every coupling net acts on the output.
-    (At N(0, 1e-2^2) the 18 reverse layers blow the fields up to ~5e10,
-    where the CPU's own f32 result lies 4.5e-5 from float64: no test of
-    agreement.)"""
-    from pde_surrogate_torch.models.flow import Conv2dZeros
-    from pde_surrogate_torch.models.glow import MultiScaleCondGlow
-    model = MultiScaleCondGlow(imsize, 1, 3, **(width or GLOW_WIDTH), seed=0)
-    rng = np.random.default_rng(0)
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, Conv2dZeros):
-                m.conv.weight.copy_(torch.from_numpy(rng.normal(
-                    0, 1e-3, tuple(m.conv.weight.shape)).astype(np.float32)))
-    return model.to(device, dtype)
-
-
-def glow_outputs(device, dtype=torch.float32, bsz: int = 8, imsize: int = 64,
-                 n_cg: int = 64, **width) -> dict:
-    """Density log p of a seeded y, generate's output and log p from fixed
-    eps, and the reverse-KL loss with its parameter gradient under sobel
-    and fvcg, on kle512 K; BatchNorm in train mode, as the training step
-    runs it (at init the running stats do not normalise the encoder's
-    features, and the reverse flow of the perturbed heads overflows)."""
-    from pde_surrogate_torch.data.grf import sample_kle
-    from pde_surrogate_torch.ops.filters import SobelFilter
-    from pde_surrogate_torch.train.glow_trainer import reverse_kl_objective
-    model = glow_model(device, dtype, imsize, **width)
-    rng = np.random.default_rng(1)
-
-    def t(a):
-        return torch.from_numpy(np.asarray(a, np.float32)).to(device, dtype)
-    K = t(sample_kle(bsz, imsize, 512, rng=13)[:, None])
-    y = t(rng.normal(0, 0.3, (bsz, 3, imsize, imsize)))
-    eps = [t(rng.normal(size=(bsz,) + s)) for s in model.z_shapes]
-    out = {}
-    model.train()
-    with torch.no_grad():
-        out["density log p"] = model(y, K)[1].double().cpu()
-        y_gen, logp = model.generate(K, eps_list=eps)
-        out["generate y"], out["generate log p"] = (y_gen.double().cpu(),
-                                                    logp.double().cpu())
-    sobel = SobelFilter(imsize)
-    for physics in ("sobel", "fvcg"):
-        model.zero_grad(set_to_none=True)
-        y_gen, ll = model.generate(K, eps_list=eps)
-        loss = reverse_kl_objective(K, y_gen, ll, sobel, 150.0, 50.0,
-                                    3 * imsize * imsize, physics,
-                                    fvcg_iters=n_cg)["loss"]
-        loss.backward()
-        out[f"{physics} loss"] = loss.detach().double().cpu().reshape(1)
-        out[f"{physics} grad"] = torch.cat([
-            p.grad.flatten() for p in model.parameters()
-            if p.grad is not None]).double().cpu()
-    return out
-
-
 def phase_glow_parity():
-    """The cGlow at full width, 64^2, B=8, on the card against the CPU:
-    density log p, generate's log p and the reverse-KL losses within 1e-5
-    relative; generate's output and the parameter gradients within 1e-5 of
-    their largest magnitude, or three times the CPU f32 result's own
-    distance from float64."""
+    """The cGlow at full width (enc [3,4,4], flow [6,6,6]), 64^2, B=8
+    (``tools/glow_check``).  Heads at 1e-3: on the card against the CPU
+    (log p and the losses within 1e-5 relative; generate's output and the
+    parameter gradients within 1e-5 of their largest magnitude, or three
+    times the CPU f32 result's own distance from float64).  Heads at 1e-2
+    (fields of ~5e10; trained heads leave zero): on the card against the
+    CPU's float64 within 2e-4 of the largest magnitude, printed beside the
+    same outputs with TF32 convolutions."""
+    from pde_surrogate_torch.tools.glow_check import (card_vs_cpu,
+                                                      card_vs_float64,
+                                                      glow_outputs)
+
+    def outputs(device, head_scale, dtype=torch.float32):
+        return glow_outputs(device, dtype, imsize=64, enc_blocks=[3, 4, 4],
+                            flow_blocks=[6, 6, 6], head_scale=head_scale)
     tic = time.perf_counter()
-    on_gpu = glow_outputs("cuda")
-    torch.cuda.synchronize()
+    on_gpu = outputs("cuda", 1e-3)
     gpu_s = time.perf_counter() - tic
-    on_cpu = glow_outputs("cpu")
-    f64 = glow_outputs("cpu", torch.float64)
+    on_cpu, f64 = outputs("cpu", 1e-3), outputs("cpu", 1e-3, torch.float64)
     log(f"[glow] enc [3,4,4] flow [6,6,6] 64^2 B=8: card {gpu_s:.2f} s, "
         f"CPU f32 and f64 {time.perf_counter() - tic - gpu_s:.2f} s")
-    for name, cpu in on_cpu.items():
-        gpu = on_gpu[name]
-        check(bool(torch.isfinite(gpu).all()), f"[glow] {name} not finite")
-        if "log p" in name or "loss" in name:
-            rel = float(((gpu - cpu).abs() / cpu.abs()).max())
-            log(f"[glow] {name}: max {float(cpu.abs().max()):.6e}, card vs "
-                f"CPU {rel:.2e} relative (1e-5; CPU f32 vs f64 "
-                f"{float(((cpu - f64[name]).abs() / cpu.abs()).max()):.2e})")
-            check(rel <= 1e-5, f"[glow] {name}: card off the CPU by {rel}")
-        else:
-            scale = float(cpu.abs().max())
-            err = float((gpu - cpu).abs().max()) / scale
-            own = float((cpu - f64[name]).abs().max()) / scale
-            bound = max(1e-5, 3 * own)
-            log(f"[glow] {name} ({cpu.numel()} values): max|card-CPU| "
-                f"{err:.2e} of the max ({bound:.2e}; CPU f32 vs f64 "
-                f"{own:.2e})")
-            check(err <= bound, f"[glow] {name}: card off the CPU by {err}")
+    for name, err, bound, own in card_vs_cpu(on_gpu, on_cpu, f64):
+        log(f"[glow] {name} ({on_cpu[name].numel()} values): card vs CPU "
+            f"{err:.2e} ({bound:.2e}; CPU f32 vs f64 {own:.2e})")
+        check(bool(torch.isfinite(on_gpu[name]).all()) and err <= bound,
+              f"[glow] {name}: card off the CPU by {err}")
+
+    on_gpu, f64 = outputs("cuda", 1e-2), outputs("cpu", 1e-2, torch.float64)
+    flags = torch.backends.cuda.matmul, torch.backends.cudnn
+    for f in flags:
+        f.allow_tf32 = True
+    try:
+        with_tf32 = dict((name, err) for name, err, _ in card_vs_float64(
+            outputs("cuda", 1e-2), f64))
+    finally:
+        for f in flags:
+            f.allow_tf32 = False
+    for name, err, bound in card_vs_float64(on_gpu, f64):
+        log(f"[glow] heads 1e-2, {name} (max "
+            f"{float(f64[name].abs().max()):.3e}): card vs float64 "
+            f"{err:.2e} of the max ({bound:.0e}; with TF32 "
+            f"{with_tf32[name]:.2e})")
+        check(bool(torch.isfinite(on_gpu[name]).all()) and err <= bound,
+              f"[glow] heads 1e-2, {name}: card off float64 by {err}")
 
 
-def glow_step_fn(physics: str, n_cg: int | None, bsz: int = 32):
+def glow_step_fn(physics: str, n_cg: int | None):
     """One reverse-KL step of the reference-width cGlow at 64^2 on a batch
-    of ``bsz`` kle512 fields (f32, TF32 off, NaN guard on)."""
+    of 32 kle512 fields (f32, TF32 off, NaN guard on)."""
     from pde_surrogate_torch.data.grf import sample_kle
     from pde_surrogate_torch.ops.filters import SobelFilter
+    from pde_surrogate_torch.tools.glow_check import glow_model
     from pde_surrogate_torch.train.glow_trainer import (create_glow_state,
                                                         make_reverse_kl_step)
-    model = glow_model("cuda")
+    model = glow_model(64, [3, 4, 4], [6, 6, 6], 1e-3, "cuda")
     state = create_glow_state(model, lr_max=1.5e-3, total_steps=1000, seed=1)
     step = make_reverse_kl_step(state, SobelFilter(64), 150.0, 50.0,
                                 3 * 64 * 64, physics=physics,
                                 fvcg_iters=n_cg)
-    x = torch.from_numpy(sample_kle(bsz, 64, 512, rng=3))[:, None].cuda()
+    x = torch.from_numpy(sample_kle(32, 64, 512, rng=3))[:, None].cuda()
     return lambda: step(x)
 
 
@@ -717,18 +669,6 @@ class MainPath:
         check(losses[-1] < logger["adam_loss"],
               f"{label}: L-BFGS did not go below the Adam warmup's loss")
 
-    # the cGlow paths' sizes (the CPU rehearsal of the script shrinks them)
-    GLOW_DEVICE, GLOW_N, GLOW_NTRAIN, GLOW_NTEST, GLOW_NMC = (
-        "cuda", 64, 512, 128, 512)
-    GLOW_WIDTH: list[str] = []
-
-    def glow_flags(self) -> list[str]:
-        return ["--imsize", str(self.GLOW_N), "--kle", "512", "--ntrain",
-                str(self.GLOW_NTRAIN), "--ntest", str(self.GLOW_NTEST),
-                "--batch-size", "32", "--test-batch-size", "64",
-                "--ckpt-freq", "1", "--no-plot", "--device",
-                self.GLOW_DEVICE, *self.GLOW_WIDTH]
-
     def glow(self):
         """The cGlow at its reference width (enc [3,4,4], flow [6,6,6],
         dense coupling, LU, beta 150, weight bound 50, lr 1.5e-3, batch 32)
@@ -748,8 +688,11 @@ class MainPath:
         printed = io.StringIO()
         with contextlib.redirect_stdout(_Tee(sys.stdout, printed)):
             state, logger = self.drive("train cglow", lambda: train.main(
-                self.glow_flags() + ["--epochs", "2", "--data-init",
-                                     "--data-dir", data, "--exp-dir", exp]),
+                ["--imsize", "64", "--kle", "512", "--ntrain", "512",
+                 "--ntest", "128", "--batch-size", "32", "--test-batch-size",
+                 "64", "--ckpt-freq", "1", "--no-plot", "--device", "cuda",
+                 "--epochs", "2", "--data-init", "--data-dir", data,
+                 "--exp-dir", exp]),
                 needs_k1=True)
         (run_dir,) = [r for r, _, files in os.walk(exp) if "args.txt" in files]
         with open(os.path.join(run_dir, "training", "metrics.jsonl")) as f:
@@ -773,27 +716,25 @@ class MainPath:
                                           "model_epoch2.pt")),
               "train cglow: checkpoint missing")
 
-        n, ntest = self.GLOW_N, self.GLOW_NTEST
-        val = os.path.join(data, f"{n}x{n}", "kle512_lhs1000_val.hdf5")
+        val = os.path.join(data, "64x64", "kle512_lhs1000_val.hdf5")
         pred_path = os.path.join(self.tmp, "predict_cglow.hdf5")
         mean, std, rel_l2, r2 = self.drive(
             "predict_cglow", lambda: predict_cglow.main([
-                "--device", self.GLOW_DEVICE, "--run-dir", run_dir,
-                "--input", val, "--output", pred_path]))
+                "--device", "cuda", "--run-dir", run_dir, "--input", val, "--output", pred_path]))
         log(f"[main] predict_cglow: rel-L2 {rel_l2}, R2 {r2}, mean std "
             f"{float(np.mean(std)):.4e}")
-        check(mean.shape == std.shape == (ntest, 3, n, n),
+        check(mean.shape == std.shape == (128, 3, 64, 64),
               f"predict_cglow shapes {mean.shape} {std.shape}")
         check(np.isfinite(std).all() and np.isfinite(rel_l2).all()
               and np.isfinite(r2).all(),
               "predict_cglow: output_std or metrics not finite")
         check(dataset_shapes(pred_path) == {
-            "input": (ntest, 1, n, n), "output": (ntest, 3, n, n),
-            "output_std": (ntest, 3, n, n)}, "predict_cglow file shapes")
+            "input": (128, 1, 64, 64), "output": (128, 3, 64, 64),
+            "output_std": (128, 3, 64, 64)}, "predict_cglow file shapes")
 
         uq = self.drive("post_cglow", lambda: post_cglow.main([
-            "--device", self.GLOW_DEVICE, "--run-dir", run_dir,
-            "--n-monte-carlo", str(self.GLOW_NMC), "--ntest", str(ntest)]),
+            "--device", "cuda", "--run-dir", run_dir, "--n-monte-carlo",
+            "512", "--ntest", "128"]),
             needs_k1=True)
         log(f"[main] post_cglow: seconds per task "
             f"{ {k: round(v, 3) for k, v in uq.seconds.items()} }")
@@ -820,7 +761,7 @@ class MainPath:
             f"{np.round(arrays['uncertainty_quality/reliability_diagram.txt'][:, 1], 3)}")
         check(len(at_x) == 6 and not bad,
               f"post_cglow: missing or non-finite artefacts {bad}")
-        check(mat["y_pred_EE"].shape == (3, n, n), "out_stats.mat shapes")
+        check(mat["y_pred_EE"].shape == (3, 64, 64), "out_stats.mat shapes")
 
 
 class _Tee(io.TextIOBase):
@@ -953,8 +894,10 @@ def phase_step_profile():
     """One step of sobel and of fvcg (n_cg=64) at 64^2, one Adam step of
     each solver and one cGlow reverse-KL step (sobel, batch 32), under
     torch.profiler: device kernels launched and their summed time against
-    the step's wall time (CUDA events)."""
+    the step's wall time (CUDA events); the convolution and matmul FLOPs of
+    one step, counted by torch.utils.flop_counter, over that busy time."""
     from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
     cases = [(c[0], lambda c=c: _step_fn(*c[1:])) for c in STEP_CASES[:2]]
     cases += [(label, lambda f=fn: f) for label, fn in solver_steps()]
     cases += [("cglow sobel", lambda: glow_step_fn("sobel", None))]
@@ -962,6 +905,9 @@ def phase_step_profile():
         fn = make()
         for _ in range(3):
             fn()
+        with FlopCounterMode(display=False) as counter:
+            fn()
+        flops = counter.get_total_flops()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -978,7 +924,9 @@ def phase_step_profile():
         if kernels:
             log(f"[profile] {label}: {len(kernels)} device kernels in one "
                 f"step, {busy:.3f} ms busy of {wall:.3f} ms "
-                f"({busy / wall * 100:.1f} %)")
+                f"({busy / wall * 100:.1f} %); {flops / 1e9:.3f} GFLOP of "
+                f"convolutions and matmuls, {flops / busy / 1e9:.3f} TFLOP/s "
+                f"of busy time")
         else:
             log(f"[profile] {label}: the profiler recorded no device "
                 f"kernels (device time not measured); step {wall:.3f} ms")
