@@ -19,7 +19,10 @@
    the conditional Glow at its reference width (enc [3,4,4], flow [6,6,6])
    at 64^2, B=8: density, generate and the reverse-KL loss and gradient
    under sobel and fvcg, with its heads at 1e-3 against the CPU and at
-   1e-2 against float64 (``[glow]``).
+   1e-2 against float64 (``[glow]``); the DenseED's options at full width
+   ([6,8,6]/16/48, 64^2, B=8): concat-free and remat against the plain
+   model, bf16 against f32 and against the CPU's bf16, the peak memory of
+   remat (``[codec variants]``, rules in ``tools/codec_check``).
 6. Every path at full width, each driven through its CLI with the kernel
    launch counts zeroed just before and read just after: make_dataset
    (labels by the kernel); DenseED [6,8,6]/16/48 at 64^2: label-free
@@ -37,9 +40,18 @@
    reference width on kle512 at 64^2 in a fresh data dir: 2 epochs of
    reverse-KL training with --data-init (the kernel labels the val and
    the train split), predict_cglow, and post_cglow's five UQ tasks on a
-   512-field Monte-Carlo set that the kernel labels.
+   512-field Monte-Carlo set that the kernel labels; then the DenseED's
+   options through the CLIs: a --dtype bf16 Sobel run in a fresh data dir
+   (the kernel labels its val split) and predict_codec on it, a
+   --concat-free run on 128 fields whose first epoch is profiled
+   (--profile-epoch 1; the trace's CUDA kernels counted), the supervised
+   driver with all three;
+   import_torch_ckpt of a .pth made from the f32 Sobel run, served by
+   predict_codec with the source's metrics; and the figures' note where
+   matplotlib is missing, with the .txt stats written.
 7. ms per training step by CUDA events and peak memory for each objective,
-   with and without the in-loss CG, the 128^2 fvcg recipe and the cGlow's
+   with and without the in-loss CG, the 128^2 fvcg recipe, the Sobel step
+   under bf16, concat-free (f32, bf16) and remat, and the cGlow's
    reverse-KL step (sobel, fvcg); kernel launches and device busy time of
    one step from torch.profiler, and its conv and matmul FLOPs.
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
@@ -446,6 +458,51 @@ def phase_glow_parity():
               f"[glow] heads 1e-2, {name}: card off float64 by {err}")
 
 
+def phase_codec_variants():
+    """DenseED [6,8,6]/16/48 at 64^2, B=8, one set of weights: concat-free
+    and remat against the plain model, bf16 against f32 on the card (rules
+    in ``tools/codec_check``); the card's bf16 against the CPU's (printed);
+    the dtype of a conv's output under bf16; the peak memory of plain and
+    remat steps."""
+    from pde_surrogate_torch.tools.codec_check import (bf16_errors,
+                                                       codec_step, rel_l2,
+                                                       run_variant_checks)
+    shape = dict(imsize=64, blocks=[6, 8, 6], growth=16, init=48, batch=8)
+    tic = time.perf_counter()
+    rows, steps = run_variant_checks("cuda", **shape)
+    log(f"[codec variants] DenseED [6,8,6]/16/48 64^2 B=8: "
+        f"{time.perf_counter() - tic:.2f} s (card and CPU)")
+    for name, err, bound, ref in rows:
+        log(f"[codec variants] {name}: {err:.3e} (bound {bound:.3e}; the "
+            f"reference's own error {ref:.3e})")
+        check(np.isfinite(err) and err <= bound,
+              f"[codec variants] {name}: {err} > {bound}")
+    torch.backends.cudnn.enabled = False
+    try:
+        native = codec_step("cuda", **shape)
+    finally:
+        torch.backends.cudnn.enabled = True
+    log(f"[codec variants] gradient rel-L2 to float64: plain f32 "
+        f"{rel_l2(steps['f32']['grads'], steps['f64']['grads']):.3e}, "
+        f"concat-free "
+        f"{rel_l2(steps['concat_free']['grads'], steps['f64']['grads']):.3e}"
+        f", plain f32 without cuDNN "
+        f"{rel_l2(native['grads'], steps['f64']['grads']):.3e}; the CPU's "
+        f"f32 {rel_l2(steps['cpu f32']['grads'], steps['f64']['grads']):.3e}")
+    out, grad = bf16_errors(steps["bf16"], steps["cpu bf16"])
+    log(f"[codec variants] bf16 card vs bf16 CPU: output {out:.3e} of its "
+        f"max, gradient rel-L2 {grad:.3e}")
+    dtype = steps["bf16"]["conv_dtype"]
+    log(f"[codec variants] bf16: In_conv output dtype {dtype}; parameters "
+        f"and BN statistics f32")
+    check(dtype == torch.bfloat16, "bf16 run did not compute in bf16")
+    log(f"[codec variants] peak memory of one step: f32 "
+        f"{steps['f32']['peak_mib']:.1f} MiB, remat "
+        f"{steps['remat']['peak_mib']:.1f} MiB, concat-free "
+        f"{steps['concat_free']['peak_mib']:.1f} MiB, bf16 "
+        f"{steps['bf16']['peak_mib']:.1f} MiB")
+
+
 def glow_step_fn(physics: str, n_cg: int | None):
     """One reverse-KL step of the reference-width cGlow at 64^2 on a batch
     of 32 kle512 fields (f32, TF32 off, NaN guard on)."""
@@ -510,13 +567,15 @@ class MainPath:
         return result
 
     def train(self, label: str, module, *argv, exp: str, needs_k1=False,
-              check_descent=True):
-        """One training CLI run in its own exp dir; checks its losses,
-        eval metrics and last checkpoint; returns (state, run dir)."""
+              check_descent=True, argv0=None, data_dir=None):
+        """One training CLI run in its own exp dir (``argv0`` in place of
+        ``WIDTH``, data in ``data_dir``, default ``data2``); checks its
+        losses, eval metrics and last checkpoint; returns (state, run
+        dir)."""
         exp_dir = os.path.join(self.tmp, exp)
         state, logger = self.drive(label, lambda: module.main(
-            self.WIDTH + ["--data-dir", self.data2, "--exp-dir", exp_dir,
-                          *argv]), needs_k1)
+            (argv0 or self.WIDTH) + ["--data-dir", data_dir or self.data2,
+                                     "--exp-dir", exp_dir, *argv]), needs_k1)
         (run_dir,) = [r for r, _, files in os.walk(exp_dir)
                       if "args.txt" in files]
         with open(os.path.join(run_dir, "training", "metrics.jsonl")) as f:
@@ -554,6 +613,7 @@ class MainPath:
         check(dataset_shapes(pred_path) == {"input": (128, 1, 64, 64),
                                             "output": (128, 3, 64, 64)},
               "prediction file shapes")
+        return rel_l2, r2
 
     def run(self) -> int:
         """Every path; returns K1's launches summed over them."""
@@ -569,7 +629,7 @@ class MainPath:
             "64", "--n-monte-carlo", "64"]), needs_k1=True)
         _, sobel_run = self.train("train sobel", train, "--epochs", "2",
                                   exp="sobel", needs_k1=True)
-        self.predict("predict sobel", sobel_run)
+        sobel_metrics = self.predict("predict sobel", sobel_run)
         _, fvcg_run = self.train("train fvcg", train, "--epochs", "2",
                                  "--physics", "fvcg", exp="fvcg")
         # 2 epochs: the Sobel part's loss rises through the first epoch
@@ -599,7 +659,7 @@ class MainPath:
         src = torch.load(os.path.join(fvcg_run, "checkpoints",
                                       "model_epoch2.pt"),
                          map_location="cuda", weights_only=True)["model"]
-        model = _codec_common._build_model(train.Parser().parse_args(
+        model = _codec_common.build_model(train.Parser().parse_args(
             self.WIDTH), torch.device("cuda"))
         fresh = {n: v.clone() for n, v in model.state_dict().items()}
         _codec_common._warm_start(model, f"{fvcg_run}:2")
@@ -635,9 +695,88 @@ class MainPath:
         self.solve("solve_conv --nonlinear", "solve_conv_mixed_residual",
                    data3, "--nonlinear")
         self.glow()
+        self.codec_options(train, mle, sobel_run, sobel_metrics)
         total = sum(self.launches.values())
         log(f"[main] K1 launches by path: {self.launches}; total {total}")
         return total
+
+    def codec_options(self, train, mle, sobel_run: str, sobel_metrics):
+        """--dtype bf16 (in a fresh data dir, whose val split the kernel
+        labels; figures on, so that a card without matplotlib prints its
+        note), --concat-free with --profile-epoch 1, the supervised driver
+        with all three, each served by predict_codec; then
+        import_torch_ckpt of a bare .pth of the f32 Sobel run's checkpoint,
+        whose predictions must give the source run's metrics."""
+        import contextlib
+        import importlib.util
+
+        from pde_surrogate_torch.cli import import_torch_ckpt
+        width = [a for a in self.WIDTH if a != "--no-plot"]
+        data5 = os.path.join(self.tmp, "data5")
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(_Tee(sys.stdout, printed)):
+            _, bf16_run = self.train(
+                "train sobel --dtype bf16", train, "--epochs", "2",
+                "--dtype", "bf16", exp="bf16", needs_k1=True,
+                argv0=width, data_dir=data5)
+        rel_l2, r2 = self.predict("predict sobel --dtype bf16", bf16_run)
+        log(f"[main] sobel 2 epochs, rel-L2 / R2 (u, s1, s2): bf16 "
+            f"{np.round(rel_l2, 4)} / {np.round(r2, 4)}; f32 "
+            f"{np.round(sobel_metrics[0], 4)} / {np.round(sobel_metrics[1], 4)}")
+        train_dir = os.path.join(bf16_run, "training")
+        stats = sorted(f for f in os.listdir(train_dir) if f.endswith(".txt"))
+        has_mpl = importlib.util.find_spec("matplotlib") is not None
+        figures = sorted(f for f in os.listdir(train_dir)
+                         if f.endswith(".pdf"))
+        noted = "[note] matplotlib is not installed" in printed.getvalue()
+        log(f"[main] figures: matplotlib installed {has_mpl}; note printed "
+            f"{noted}; stats {stats}; curves {figures}")
+        check(len(stats) == 5, "the .txt stats were not written")
+        check(noted != has_mpl and (len(figures) == 5) == has_mpl,
+              "figures: neither drawn nor noted")
+
+        # 128 fields (4 steps an epoch): the profiler records every op of
+        # the epoch, ~3000 kernels a concat-free step
+        _, cf_run = self.train("train sobel --concat-free --profile-epoch 1",
+                               train, "--epochs", "2", "--concat-free",
+                               "--profile-epoch", "1", "--ntrain", "128",
+                               exp="cf")
+        self.predict("predict sobel --concat-free", cf_run)
+        self.trace_kernels(cf_run)
+        _, mle_run = self.train(
+            "train mle --dtype bf16 --concat-free --profile-epoch 1", mle,
+            "--epochs", "2", "--dtype", "bf16", "--concat-free",
+            "--profile-epoch", "1", "--ntrain", "128", exp="mle_options")
+        self.predict("predict mle --dtype bf16 --concat-free", mle_run)
+        self.trace_kernels(mle_run)
+
+        pth = os.path.join(self.tmp, "model_epoch2.pth")
+        torch.save(torch.load(os.path.join(sobel_run, "checkpoints",
+                                           "model_epoch2.pt"),
+                              map_location="cpu", weights_only=True)["model"],
+                   pth)
+        imported = os.path.join(self.tmp, "imported")
+        self.drive("import_torch_ckpt", lambda: import_torch_ckpt.main([
+            "--pth", pth, "--out-run-dir", imported, "--imsize", "64",
+            "--blocks", "6", "8", "6", "--device", "cuda"]))
+        rel_l2, r2 = self.predict("predict imported", imported)
+        diff = max(np.abs(rel_l2 - sobel_metrics[0]).max(),
+                   np.abs(r2 - sobel_metrics[1]).max())
+        log(f"[main] imported run vs its source: metrics differ by "
+            f"{diff:.3e} (0)")
+        check(diff == 0.0, "the imported run's metrics differ from the "
+                           "source run's")
+
+    def trace_kernels(self, run_dir: str):
+        """The CUDA kernels in a run's profiled epoch's trace."""
+        path = os.path.join(run_dir, "training", "profile", "trace.json")
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        log(f"[main] {os.path.basename(run_dir)} --profile-epoch 1: trace "
+            f"{os.path.getsize(path) / 2 ** 20:.1f} MiB, {len(events)} "
+            f"events, {kernels} CUDA kernels")
+        check(kernels > 0, "the profiled epoch's trace holds no CUDA kernel")
 
     def solve(self, label: str, module: str, data_dir: str, *argv,
               needs_k1=False):
@@ -780,24 +919,35 @@ class _Tee(io.TextIOBase):
             st.flush()
 
 
+SOBEL = dict(physics="sobel")
 STEP_CASES = [
-    # label, imsize, blocks, loss kind, physics keywords
-    ("sobel", 64, [6, 8, 6], "mixed_residual", dict(physics="sobel")),
+    # label, imsize, blocks, loss kind, physics keywords, DenseED options
+    ("sobel", 64, [6, 8, 6], "mixed_residual", SOBEL, {}),
     ("fvcg n_cg=64", 64, [6, 8, 6], "mixed_residual",
-     dict(physics="fvcg", fvcg_iters=64)),
+     dict(physics="fvcg", fvcg_iters=64), {}),
     ("fvcg n_cg=0", 64, [6, 8, 6], "mixed_residual",
-     dict(physics="fvcg", fvcg_iters=0)),
+     dict(physics="fvcg", fvcg_iters=0), {}),
     ("sobel_fvcg n_cg=64", 64, [6, 8, 6], "mixed_residual",
-     dict(physics="sobel_fvcg", fvcg_iters=64)),
-    ("mle", 64, [6, 8, 6], "mle", {}),
+     dict(physics="sobel_fvcg", fvcg_iters=64), {}),
+    ("mle", 64, [6, 8, 6], "mle", {}, {}),
     ("fvcg n_cg=256", 128, [4, 6, 8, 6, 4], "mixed_residual",
-     dict(physics="fvcg", fvcg_iters=256)),
+     dict(physics="fvcg", fvcg_iters=256), {}),
+]
+VARIANT_STEPS = [
+    ("sobel bf16", 64, [6, 8, 6], "mixed_residual", SOBEL,
+     dict(dtype=torch.bfloat16)),
+    ("sobel concat-free", 64, [6, 8, 6], "mixed_residual", SOBEL,
+     dict(concat_free=True)),
+    ("sobel concat-free bf16", 64, [6, 8, 6], "mixed_residual", SOBEL,
+     dict(concat_free=True, dtype=torch.bfloat16)),
+    ("sobel remat", 64, [6, 8, 6], "mixed_residual", SOBEL,
+     dict(remat=True)),
 ]
 
 
-def _step_fn(imsize, blocks, kind, physics_kw):
-    """A training step of DenseED blocks/16/48 on a batch of 32 kle512
-    fields, f32 with TF32 off."""
+def _step_fn(imsize, blocks, kind, physics_kw, model_kw):
+    """A training step of DenseED blocks/16/48 (with the options
+    ``model_kw``) on a batch of 32 kle512 fields, TF32 off."""
     from pde_surrogate_torch.data.grf import sample_kle
     from pde_surrogate_torch.models.codec import DenseED
     from pde_surrogate_torch.ops.filters import SobelFilter
@@ -805,7 +955,7 @@ def _step_fn(imsize, blocks, kind, physics_kw):
         create_state, make_mixed_residual_step, make_mle_step)
     torch.manual_seed(0)
     model = DenseED(1, 3, imsize, blocks, growth_rate=16,
-                    init_features=48).cuda()
+                    init_features=48, **model_kw).cuda()
     state = create_state(model, lr_max=1e-3, total_steps=1000)
     x = torch.from_numpy(sample_kle(32, imsize, 512, rng=3))[:, None].cuda()
     if kind == "mle":
@@ -822,21 +972,25 @@ def phase_step_times() -> dict:
     """ms per training step (CUDA events, 5 warm-up steps) and peak device
     memory of each objective; returns {label: ms}."""
     out = {}
-    for label, imsize, blocks, kind, physics_kw in STEP_CASES:
+    for label, imsize, blocks, kind, physics_kw, model_kw in (
+            STEP_CASES + VARIANT_STEPS):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        fn = _step_fn(imsize, blocks, kind, physics_kw)
+        fn = _step_fn(imsize, blocks, kind, physics_kw, model_kw)
         ms = cuda_ms(fn, reps=10 if imsize > 64 else 20, warmup=5)
         peak = torch.cuda.max_memory_allocated() / 2 ** 20
         out[label] = ms
+        dtype = "bf16" if "dtype" in model_kw else "f32"
         log(f"[step] {label}: DenseED {blocks}/16/48 {imsize}^2 batch 32 "
-            f"f32: {ms:.3f} ms/step ({32 / ms * 1e3:.1f} samples/s), peak "
-            f"memory {peak:.1f} MiB")
+            f"{dtype}: {ms:.3f} ms/step ({32 / ms * 1e3:.1f} samples/s), "
+            f"peak memory {peak:.1f} MiB")
         del fn
     cg = out["fvcg n_cg=64"] - out["fvcg n_cg=0"]
     log(f"[step] in-loss CG at 64^2, n_cg=64: {cg:.3f} ms/step "
         f"({cg / out['fvcg n_cg=64'] * 100:.1f} % of the fvcg step; fvcg / "
         f"sobel {out['fvcg n_cg=64'] / out['sobel']:.2f}x)")
+    log("[step] sobel variants / f32 sobel: " + ", ".join(
+        f"{c[0][6:]} {out[c[0]] / out['sobel']:.2f}x" for c in VARIANT_STEPS))
     return out
 
 
@@ -891,14 +1045,16 @@ def phase_solver_step_times():
 
 
 def phase_step_profile():
-    """One step of sobel and of fvcg (n_cg=64) at 64^2, one Adam step of
-    each solver and one cGlow reverse-KL step (sobel, batch 32), under
+    """One step of sobel, of its bf16, concat-free and remat variants and
+    of fvcg (n_cg=64) at 64^2, one Adam step of each solver and one cGlow
+    reverse-KL step (sobel, batch 32), under
     torch.profiler: device kernels launched and their summed time against
     the step's wall time (CUDA events); the convolution and matmul FLOPs of
     one step, counted by torch.utils.flop_counter, over that busy time."""
     from torch.profiler import ProfilerActivity, profile
     from torch.utils.flop_counter import FlopCounterMode
-    cases = [(c[0], lambda c=c: _step_fn(*c[1:])) for c in STEP_CASES[:2]]
+    cases = [(c[0], lambda c=c: _step_fn(*c[1:]))
+             for c in STEP_CASES[:2] + VARIANT_STEPS]
     cases += [(label, lambda f=fn: f) for label, fn in solver_steps()]
     cases += [("cglow sobel", lambda: glow_step_fn("sobel", None))]
     for label, make in cases:
@@ -949,6 +1105,7 @@ def main() -> int:
     phase_fc_parity()
     phase_nonlinear()
     phase_glow_parity()
+    phase_codec_variants()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         launches = MainPath(tmp).run()

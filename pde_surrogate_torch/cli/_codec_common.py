@@ -2,18 +2,19 @@
 
 Counterpart of pde_surrogate_tpu/cli/_codec_common.py: dataset files
 generated on demand (inputs on the host, labels by the device PCG solver),
-Adam + OneCycle, an epoch loop of label-free physics steps or supervised
-MSE steps, a test pass with rel-L2 / R^2 / flux-pressure consistency,
-checkpoints with meta, warm starts (``--init-from``), label-free checkpoint
-selection, the stats dump and the LR-range test (``--find-lr``); the
-dataset files of the cGlow CLIs (``resolve_dataset_files``) and of its UQ
-suite (``uq_dataset_files``).
+the DenseED in f32 or bf16, with or without concats (``--dtype``,
+``--concat-free``), Adam + OneCycle, an epoch loop of label-free physics
+steps or supervised MSE steps (one epoch optionally under the profiler,
+``--profile-epoch``), a test pass with rel-L2 / R^2 / flux-pressure
+consistency and prediction figures, checkpoints with meta, warm starts
+(``--init-from``), label-free checkpoint selection, the stats dump and the
+LR-range test (``--find-lr``); the dataset files of the cGlow CLIs
+(``resolve_dataset_files``) and of its UQ suite (``uq_dataset_files``).
 """
 
 from __future__ import annotations
 
 import copy
-import json
 import os
 import time
 
@@ -34,11 +35,15 @@ from ..train.codec_trainer import (create_state, current_lr, make_eval_step,
 from ..train.schedules import find_lr_schedule
 from ..utils.config import select_device
 from ..utils.metrics import r2_score
+from ..utils.observability import JsonlLogger, StepTimer, profile_trace
+from ..viz.plot import load_pyplot, plot_prediction_det, save_stats
 from .make_dataset import solve_labels
 
 __all__ = ["ensure_dataset", "resolve_dataset_files", "uq_dataset_files",
-           "reject_unported", "run_codec_training", "run_find_lr",
-           "save_stats"]
+           "reject_unported", "build_model", "run_codec_training",
+           "run_find_lr"]
+
+DTYPES = {"f32": None, "bf16": torch.bfloat16}
 
 
 def _generate_inputs(data: str, n: int, imsize: int, kle: int, seed: int):
@@ -171,29 +176,22 @@ def uq_dataset_files(run_args, n_mc: int, ntest: int, device="cuda"):
 
 
 def reject_unported(args):
-    """Raise on every codec CLI option whose code this package does not
-    have yet, naming its ROADMAP item; none is silently ignored."""
-    todo = []
-    if args.dtype != "f32":
-        todo.append("--dtype bf16 (ROADMAP A14)")
-    if getattr(args, "concat_free", False):
-        todo.append("--concat-free (ROADMAP A15)")
+    """Raise on the codec CLI option whose code this package does not have
+    yet, naming its ROADMAP item; it is never silently ignored."""
     if args.n_devices is not None and args.n_devices > 1:
-        todo.append("--n-devices > 1 (ROADMAP E3)")
-    if args.profile_epoch:
-        todo.append("--profile-epoch (ROADMAP E1)")
-    if todo:
-        raise NotImplementedError("not ported yet: " + ", ".join(todo))
-    if not args.no_plot:
-        print("[note] prediction plots are not ported yet (ROADMAP E1); "
-              "training runs without them")
+        raise NotImplementedError("not ported yet: --n-devices > 1 "
+                                  "(ROADMAP E3)")
 
 
-def _build_model(args, device) -> DenseED:
+def build_model(args, device) -> DenseED:
+    """The DenseED of a run (training args or a run dir's args.txt; runs
+    recorded without ``dtype`` / ``concat_free`` are f32 with concats)."""
     return DenseED(in_channels=1, out_channels=3, imsize=args.imsize,
                    blocks=args.blocks, growth_rate=args.growth_rate,
                    init_features=args.init_features,
-                   drop_rate=args.drop_rate, upsample=args.upsample
+                   drop_rate=args.drop_rate, upsample=args.upsample,
+                   dtype=DTYPES[getattr(args, "dtype", "f32")],
+                   concat_free=getattr(args, "concat_free", False)
                    ).to(device)
 
 
@@ -240,23 +238,16 @@ def _warm_start(model, init_from: str) -> None:
     print(f"Warm-started weights from {src_ckpt} epoch {ep}")
 
 
-def save_stats(save_dir: str, logger: dict, *metrics):
-    """Metric curves as {metric}.txt (the .pdf curves come with the plots)."""
-    os.makedirs(save_dir, exist_ok=True)
-    for metric in metrics:
-        np.savetxt(os.path.join(save_dir, f"{metric}.txt"),
-                   np.asarray(logger[metric]))
-
-
 def run_codec_training(args, loss_kind: str):
     """The epoch loop of both codec CLIs; ``loss_kind`` 'mixed_residual'
     (label-free, ``args.physics``) or 'mle' (MSE against solver labels).
     Returns ``(state, logger)``."""
     device = select_device(args.device)
     args.train_dir = os.path.join(args.run_dir, "training")
-    os.makedirs(args.train_dir, exist_ok=True)
+    args.pred_dir = os.path.join(args.train_dir, "predictions")
+    os.makedirs(args.pred_dir, exist_ok=True)
 
-    model = _build_model(args, device)
+    model = build_model(args, device)
     train_ds, test_file = _train_data(args, loss_kind, device)
     x_test, y_test, stats = load_data(test_file, args.ntest, only_input=False,
                                       return_stats=True)
@@ -306,6 +297,8 @@ def run_codec_training(args, loss_kind: str):
 
     def test(epoch, st, record=True):
         eval_step = make_eval_step(st, sobel, args.weight_bound, **physics_kw)
+        want_plot = (record and not args.no_plot
+                     and (epoch % args.plot_freq == 0 or epoch == args.epochs))
         losses, rel, sse, cons = [], [], [], []
         for x, y in test_ds.batches(epoch):
             out = eval_step(x, y)
@@ -313,6 +306,7 @@ def run_codec_training(args, loss_kind: str):
             rel.append(out["rel_l2"])
             sse.append(out["sse"])
             cons.append(out["consistency"])
+            plot_batch = (y, out["output"])
         # one host sync for the whole test set
         loss_test = float(torch.stack(losses).mean())
         relative_l2 = torch.cat(rel).mean(0).cpu().numpy()
@@ -323,34 +317,44 @@ def run_codec_training(args, loss_kind: str):
         print(f"Epoch {epoch}: test r2-score: {r2}")
         print(f"Epoch {epoch}: test relative-l2: {relative_l2}")
         print(f"Epoch {epoch}: flux-pressure consistency: {consistency:.4f}")
+        if want_plot:
+            # the last test batch; 6 random fields at the last epoch, else 2
+            y_np, out_np = (t.cpu().numpy() for t in plot_batch)
+            n_samples = 6 if epoch == args.epochs else 2
+            for i in np.random.permutation(len(y_np))[:n_samples]:
+                plot_prediction_det(args.pred_dir, y_np[i], out_np[i], epoch,
+                                    int(i), plot_fn=args.plot_fn)
         if record and epoch % args.log_freq == 0:
             logger["loss_test"].append(loss_test)
             logger["r2_test"].append(r2.tolist())
             logger["nrmse_test"].append(relative_l2.tolist())
             logger["consistency_test"].append(consistency)
 
-    jsonl_path = os.path.join(args.train_dir, "metrics.jsonl")
+    timer = StepTimer(args.batch_size)
+    jsonl = JsonlLogger(os.path.join(args.train_dir, "metrics.jsonl"))
     print("Start training..." + "." * 47)
     tic = time.time()
     for epoch in range(start_epoch, args.epochs + 1):
-        t0 = time.perf_counter()
-        losses = torch.stack([train_step(*batch)["loss"]
-                              for batch in train_ds.batches(epoch)])
+        timer.start()
+        with profile_trace(os.path.join(args.train_dir, "profile"),
+                           enabled=epoch == args.profile_epoch,
+                           device=device):
+            losses = torch.stack([train_step(*batch)["loss"]
+                                  for batch in train_ds.batches(epoch)])
+            timer.step(len(train_ds))
+        rate = timer.result(fence=losses)
         losses = losses.cpu()  # the epoch's one host sync
-        epoch_s = time.perf_counter() - t0
         loss_train = float(losses.mean())
-        rate = len(train_ds) * args.batch_size / epoch_s
         print(f"Epoch {epoch}, lr {current_lr(state):.6f}, "
-              f"{rate:.0f} samples/sec")
+              f"{rate['samples_per_sec']:.0f} samples/sec")
         print(f"Epoch {epoch}: training loss: {loss_train:.6f}")
         if epoch % args.log_freq == 0:
             logger["loss_train"].append(loss_train)
-            with open(jsonl_path, "a") as f:
-                f.write(json.dumps({
-                    "epoch": epoch, "loss_train": loss_train,
-                    "loss_first_step": float(losses[0]),
-                    "lr": current_lr(state), "samples_per_sec": rate,
-                    "epoch_seconds": epoch_s}) + "\n")
+            jsonl.log({"epoch": epoch, "loss_train": loss_train,
+                       "loss_first_step": losses[0],
+                       "lr": current_lr(state),
+                       "samples_per_sec": rate["samples_per_sec"],
+                       "epoch_seconds": rate["seconds"]})
         # eval before checkpointing, so the meta sidecar carries this
         # epoch's consistency record; save even if eval raises
         try:
@@ -393,11 +397,10 @@ def run_find_lr(args, loss_kind: str, init_value: float = 1e-8,
     smoothed_loss) into the run dir and returns ``(log_lrs, losses)``.
 
     As in the JAX package the label-free test runs the Sobel mixed
-    residual whatever ``--physics`` says.  The ``.pdf`` plot comes with
-    ROADMAP E1.
+    residual whatever ``--physics`` says.  ``find_lr.pdf`` plots the curve.
     """
     device = select_device(args.device)
-    model = _build_model(args, device)
+    model = build_model(args, device)
     train_ds, _ = _train_data(args, loss_kind, device)
     num = max(len(train_ds) - 1, 1)
     state = create_state(model, lr_max=args.lr, total_steps=num,
@@ -450,5 +453,13 @@ def run_find_lr(args, loss_kind: str, init_value: float = 1e-8,
     np.savetxt(os.path.join(args.run_dir, "find_lr.txt"),
                np.stack([log_lrs, losses], axis=1),
                header="log10_lr smoothed_loss")
-    print("[note] the find_lr.pdf plot is not ported yet (ROADMAP E1)")
+    plt = load_pyplot("find_lr.pdf")
+    if plt is not None:
+        sl = slice(10, -5) if len(log_lrs) > 20 else slice(None)
+        plt.figure()
+        plt.plot(np.asarray(log_lrs)[sl], np.asarray(losses)[sl])
+        plt.xlabel("log10(lr)")
+        plt.ylabel("smoothed loss")
+        plt.savefig(os.path.join(args.run_dir, "find_lr.pdf"))
+        plt.close()
     return log_lrs, losses

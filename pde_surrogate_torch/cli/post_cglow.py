@@ -4,9 +4,9 @@ Counterpart of pde_surrogate_tpu/cli/post_cglow.py: rebuild the model from
 the run dir's args.txt, restore a checkpoint, then run prediction at x,
 distribution estimates, the test metric, the reliability diagram and the
 uncertainty propagation against a Monte-Carlo dataset (generated on demand,
-labels by the PCG kernel).  Writes under ``<run dir>/post_proc_epoch{E}``
-and prints each task's wall time; the figures and the gif wait for ROADMAP
-E1.
+labels by the PCG kernel).  Writes the figures, the numbers they show and
+the prediction-at-x gif (``cglow_pred_at_x.gif``) under
+``<run dir>/post_proc_epoch{E}`` and prints each task's wall time.
 
 Run:  python -m pde_surrogate_torch.cli.post_cglow --run-dir <dir> \
           --ckpt-epoch 400
@@ -22,6 +22,7 @@ from ..data.hdf5 import load_args, load_data
 from ..train.checkpoint import latest_epoch, restore_weights
 from ..uq.uq import GlowSurrogate, UQCondGlow
 from ..utils.config import select_device
+from ..viz.plot import assemble_gif
 from ._codec_common import uq_dataset_files
 from .train_cglow_reverse_kl import build_model
 
@@ -70,10 +71,20 @@ def main(argv=None):
                               temperature=args.temperature)
     uq = UQCondGlow(surrogate, (mc_x, mc_y), (test_x, test_y),
                     stats["y_variation"], post_dir, run_args.imsize,
-                    batch_size=args.batch_size, epochs=run_args.epochs)
+                    batch_size=args.batch_size,
+                    ntrain=getattr(run_args, "ntrain", 0),
+                    epochs=run_args.epochs)
+
+    def predict_at_x():
+        uq.plot_prediction_at_x(args.n_pred, plot_samples=args.plot_samples)
+        gif = assemble_gif(os.path.join(post_dir, "predict_at_x"),
+                           os.path.join(post_dir, "cglow_pred_at_x.gif"),
+                           duration_ms=800)
+        if gif:
+            print(f"animation: {gif}")
+
     tasks = {
-        "predict_at_x": lambda: uq.plot_prediction_at_x(
-            args.n_pred, plot_samples=args.plot_samples),
+        "predict_at_x": predict_at_x,
         "dist": lambda: uq.plot_dist(args.num_loc),
         "test_metric": lambda: uq.test_metric(handle_nan=True),
         "reliability": uq.plot_reliability_diagram,

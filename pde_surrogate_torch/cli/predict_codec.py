@@ -1,7 +1,8 @@
 """Batch inference (serving) for a trained DenseED codec run.
 
 Counterpart of pde_surrogate_tpu/cli/predict_codec.py for the port's runs:
-rebuild the model from the run dir's ``args.txt``, restore a checkpoint,
+rebuild the model from the run dir's ``args.txt`` (with the run's
+``dtype`` and ``concat_free``), restore a checkpoint,
 predict (u, flux_hor, flux_ver) for a whole HDF5 file of permeability
 inputs, write the reference's NCHW layout, and print rel-L2 and R^2 when
 the file carries labels.
@@ -20,12 +21,12 @@ import numpy as np
 import torch
 
 from ..data.hdf5 import dataset_shapes, load_args, load_data, save_dataset
-from ..models.codec import DenseED
 from ..train.checkpoint import (_meta_file, latest_epoch, latest_meta_epoch,
                                 restore_checkpoint, select_consistency_epoch)
 from ..train.codec_trainer import create_state
 from ..utils.config import select_device
 from ..utils.metrics import r2_score, relative_l2, squared_error_sum
+from ._codec_common import build_model
 
 __all__ = ["main"]
 
@@ -81,11 +82,7 @@ def main(argv=None):
     if args.select_consistency:
         epoch = _consistency_epoch(ckpt_dir, epoch)
 
-    model = DenseED(in_channels=1, out_channels=3, imsize=run_args.imsize,
-                    blocks=run_args.blocks, growth_rate=run_args.growth_rate,
-                    init_features=run_args.init_features,
-                    drop_rate=run_args.drop_rate,
-                    upsample=run_args.upsample).to(device)
+    model = build_model(run_args, device)
     state = create_state(model, lr_max=1e-3, total_steps=1,
                          weight_decay=getattr(run_args, "weight_decay", 0.0))
     restore_checkpoint(ckpt_dir, epoch, state)

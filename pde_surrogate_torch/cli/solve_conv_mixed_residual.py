@@ -15,8 +15,9 @@ predictions as the JAX package, plus ``--device`` (default ``cuda``).
 The loss and the predictions run the Decoder with train-mode BatchNorm
 (batch statistics), as the reference does; its running statistics are
 never used.  Each epoch prints its loss, its loss evaluations and its wall
-time.  Plots and ``--animate`` are not ported yet (ROADMAP E1): the run
-prints a note and trains without them.
+time; each test epoch saves a figure of target, prediction and error (with
+``--animate`` a numbered frame, assembled into ``animation.gif`` at the
+end), unless ``--no-plot``.
 
 Run:  python -m pde_surrogate_torch.cli.solve_conv_mixed_residual \\
           --data grf --kle 1024 --idx 8
@@ -42,10 +43,12 @@ from ..train.checkpoint import save_weights
 from ..train.lbfgs import (FlatParams, lbfgs_optimizer, make_lbfgs_epoch,
                            run_adam_warmup)
 from ..utils.config import BaseParser, int_list, seed_everything, select_device
-from ._codec_common import ensure_dataset, save_stats
+from ..viz.plot import (assemble_gif, plot_prediction_det,
+                        plot_prediction_det_animate, save_stats)
+from ._codec_common import ensure_dataset
 
-__all__ = ["main", "adam_warmup", "ensure_test_dataset",
-           "note_unported_plots", "relative_l2", "sync"]
+__all__ = ["main", "adam_warmup", "ensure_test_dataset", "plot_prediction",
+           "write_animation", "relative_l2", "sync"]
 
 
 def ensure_test_dataset(args) -> str:
@@ -80,14 +83,29 @@ def ensure_test_dataset(args) -> str:
     return path
 
 
-def note_unported_plots(args) -> None:
-    """Say which figures this run leaves out (ROADMAP E1)."""
-    if not args.no_plot:
-        print("[note] prediction plots are not ported yet (ROADMAP E1); the "
-              "run saves the epoch{N}.npy predictions without them")
+def plot_prediction(args, run_dir: str, target: np.ndarray,
+                    prediction: np.ndarray, epoch: int) -> None:
+    """A test epoch's figure of both solvers: target, prediction and error
+    (``pred_epoch{E}_{idx}.png``), or with ``--animate`` the frame
+    ``pred_{epoch // test_freq}.png``."""
+    if args.no_plot:
+        return
     if args.animate:
-        print("[note] --animate is not ported yet (ROADMAP E1); no animation "
-              "is written")
+        plot_prediction_det_animate(run_dir, target, prediction, epoch,
+                                    args.idx, epoch // args.test_freq,
+                                    cmap=args.cmap,
+                                    same_scale=args.same_scale)
+    else:
+        plot_prediction_det(run_dir, target, prediction, epoch, args.idx,
+                            cmap=args.cmap, same_scale=args.same_scale)
+
+
+def write_animation(args, run_dir: str) -> None:
+    """With ``--animate``, the frames assembled into ``animation.gif``."""
+    if args.animate and not args.no_plot:
+        gif = assemble_gif(run_dir)
+        if gif:
+            print(f"animation: {gif}")
 
 
 def relative_l2(prediction: np.ndarray, target: np.ndarray) -> np.ndarray:
@@ -186,7 +204,6 @@ def main(argv=None):
         hyparams += f"_alpha1_{args.alpha1}_alpha2_{args.alpha2}"
     run_dir = os.path.join(args.exp_dir, exp_name, hyparams)
     os.makedirs(run_dir, exist_ok=True)
-    note_unported_plots(args)
 
     hdf5_file = ensure_test_dataset(args)
     x_all, y_all, _ = load_data(hdf5_file, args.idx + 1, only_input=False)
@@ -247,6 +264,7 @@ def main(argv=None):
         if epoch % args.epochs == 0 or epoch % args.test_freq == 0:
             with torch.no_grad():
                 output = forward(params)[0].cpu().numpy()
+            plot_prediction(args, run_dir, target, output, epoch)
             np.save(os.path.join(run_dir, f"epoch{epoch}.npy"), output)
             rel = relative_l2(output, target)
             logger["rel_l2"].append((epoch, rel.tolist()))
@@ -304,6 +322,7 @@ def main(argv=None):
     print(f"Finished optimization for {args.epochs} epochs using "
           f"{(time.time() - tic) / 60:.3f} minutes")
     save_stats(run_dir, logger, "loss")
+    write_animation(args, run_dir)
     flat.load(params)
     return params, logger, target
 

@@ -12,9 +12,10 @@ L-BFGS 20 steps an epoch.  The same flags, defaults, run-dir names and
 
 The net's flux channels are (flux_ver, flux_hor); the predictions are
 saved in the dataset's order (u, flux_hor, flux_ver), as in the reference.
-On the grid, K is gathered at the sampled points.  Plots, ``--animate`` and
-the 640^2 render are not ported yet (ROADMAP E1): the run prints a note
-and trains without them.
+On the grid, K is gathered at the sampled points.  Unless ``--no-plot``,
+each test epoch saves a figure (``--animate``: frames and a gif), and the
+end of the run renders u at 640^2 (``solution_HR.png``) beside log K
+(``input_logK.png``), the reference's super-resolution plot.
 
 Run:  python -m pde_surrogate_torch.cli.solve_fc_mixed_residual \\
           --data grf --kle 512 --idx 8
@@ -35,10 +36,10 @@ from ..ops.sampling import SampleSpatial2d
 from ..train.checkpoint import save_weights
 from ..train.lbfgs import FlatParams, lbfgs_optimizer, make_lbfgs_epoch
 from ..utils.config import BaseParser, seed_everything, select_device
-from ._codec_common import save_stats
+from ..viz.plot import plot_row, save_stats
 from .solve_conv_mixed_residual import (adam_warmup, ensure_test_dataset,
-                                        note_unported_plots, relative_l2,
-                                        sync)
+                                        plot_prediction, relative_l2, sync,
+                                        write_animation)
 
 __all__ = ["main"]
 
@@ -94,10 +95,6 @@ def main(argv=None):
                 f"ncolloc{args.n_colloc}")
     run_dir = os.path.join(args.exp_dir, "fc_mixed_residual", hyparams)
     os.makedirs(run_dir, exist_ok=True)
-    note_unported_plots(args)
-    if not args.no_plot:
-        print("[note] the 640^2 solution render is not ported yet "
-              "(ROADMAP E1)")
 
     hdf5_file = ensure_test_dataset(args)
     x_all, y_all, _ = load_data(hdf5_file, args.idx + 1, only_input=False)
@@ -168,6 +165,7 @@ def main(argv=None):
             flux_ver = y_pred[:, 1].reshape(n, n)
             flux_hor = y_pred[:, 2].reshape(n, n)
             prediction = np.stack([u, flux_hor, flux_ver])  # dataset order
+            plot_prediction(args, run_dir, target, prediction, epoch)
             np.save(os.path.join(run_dir, f"epoch{epoch}.npy"), prediction)
             rel = relative_l2(prediction, target)
             logger["rel_l2"].append((epoch, rel.tolist()))
@@ -192,7 +190,19 @@ def main(argv=None):
     print(f"Finished training {args.epochs} epochs in "
           f"{(time.time() - tic) / 60:.3f} minutes")
     save_stats(run_dir, logger, "loss")
+    write_animation(args, run_dir)
     flat.load(params)
+    if not args.no_plot:
+        # super-resolution render (reference solve_fc_mixed_residual.py
+        # :202-213)
+        n_hr = 640
+        yy, xx = np.meshgrid(np.arange(n_hr), np.arange(n_hr), indexing="ij")
+        with torch.no_grad():
+            u_hr = model(pts(np.stack([yy.ravel() / (n_hr - 1),
+                                       xx.ravel() / (n_hr - 1)], 1)))
+        plot_row([u_hr[:, 0].reshape(n_hr, n_hr).cpu().numpy()], run_dir,
+                 "solution_HR", plot_fn="contourf")
+        plot_row([np.log(perm_grid)], run_dir, "input_logK")
     return params, logger, target
 
 

@@ -9,9 +9,12 @@ beta * (physics residual + boundary) on generated samples plus the
 predictive entropy in bits per pixel.  Every 10th epoch evaluates the mean
 of 20 samples; the test entropy is the mean over the test batches.
 
+Unless ``--no-plot``, every ``--plot-freq``-th and the last epoch draw
+the predictive mean, std and error, and 15 samples, of random fields of
+the first test batch (20 draws each) into ``training/predictions``.
 ``--no-scan-epochs`` is accepted and changes nothing (the port always runs
-the per-step loop); ``--n-devices > 1`` raises ``NotImplementedError``
-(ROADMAP E3); the prediction plots wait for ROADMAP E1.
+the per-step loop), nor does ``--profile-epoch``, as in the JAX CLI;
+``--n-devices > 1`` raises ``NotImplementedError`` (ROADMAP E3).
 
 Run:  python -m pde_surrogate_torch.cli.train_cglow_reverse_kl \
           --beta 150 --kle 512 --imsize 64 --data-init
@@ -38,7 +41,9 @@ from ..train.glow_trainer import (create_glow_state, data_init_actnorm,
                                   make_reverse_kl_step)
 from ..utils.config import BaseParser, int_list, make_generator, select_device
 from ..utils.metrics import r2_score
-from ._codec_common import resolve_dataset_files, save_stats
+from ..utils.observability import JsonlLogger
+from ..viz.plot import plot_prediction_bayes2, save_samples, save_stats
+from ._codec_common import resolve_dataset_files
 
 __all__ = ["Parser", "main", "build_model"]
 
@@ -213,10 +218,8 @@ def main(argv=None):
     args = Parser().parse(argv)
     device = select_device(args.device)
     args.train_dir = os.path.join(args.run_dir, "training")
-    os.makedirs(args.train_dir, exist_ok=True)
-    if not args.no_plot:
-        print("[note] prediction plots are not ported yet (ROADMAP E1); "
-              "training runs without them")
+    args.pred_dir = os.path.join(args.train_dir, "predictions")
+    os.makedirs(args.pred_dir, exist_ok=True)
 
     # inputs for training (labels too under --data-init), labelled val
     train_file, test_file = resolve_dataset_files(
@@ -284,6 +287,25 @@ def main(argv=None):
         data_init_actnorm(state, yb, xb)
         print("Finished data initialization of Actnorm")
 
+    def plot(epoch, x, y):
+        """Mean, std and error, and 15 samples, of 6 random fields of the
+        first test batch at the last epoch (2 before), 20 draws each."""
+        n_show = 6 if epoch == args.epochs else 2
+        model.eval()
+        with torch.no_grad():
+            for i in np.random.permutation(len(x))[:n_show]:
+                samples = model.sample(x[[i]], 20, generator=make_generator(
+                    device, 1234, int(i)), temperature=1.0)
+                y_i = y[i].cpu().numpy()
+                plot_prediction_bayes2(
+                    args.pred_dir, y_i, samples.mean(0)[0].cpu().numpy(),
+                    samples.var(0, unbiased=False)[0].cpu().numpy(), epoch,
+                    int(i))
+                save_samples(args.pred_dir, np.concatenate(
+                    [y_i[None], samples[:15, 0].cpu().numpy()]), epoch,
+                    int(i), "samples", nrow=4)
+        model.train()
+
     def test(epoch):
         step_fn = eval_mean if epoch % 10 == 0 else eval_one
         losses, ents, rel, sse = [], [], [], []
@@ -302,13 +324,16 @@ def main(argv=None):
         r2 = r2_score(torch.cat(sse).sum(0), y_variation).cpu().numpy()
         print(f"Epoch {epoch}: test r2-score: {r2}")
         print(f"Epoch {epoch}: test relative l2: {relative_l2}")
+        if not args.no_plot and (epoch % args.plot_freq == 0
+                                 or epoch == args.epochs):
+            plot(epoch, *next(iter(test_ds.batches(epoch))))
         if epoch % args.log_freq == 0:
             logger["loss_test"].append(loss_test)
             logger["r2_test"].append(r2.tolist())
             logger["nrmse_test"].append(relative_l2.tolist())
             logger["entropy_test"].append(-ent)
 
-    jsonl_path = os.path.join(args.train_dir, "metrics.jsonl")
+    jsonl = JsonlLogger(os.path.join(args.train_dir, "metrics.jsonl"))
     print("Start training..." + "." * 54)
     tic = time.time()
     for epoch in range(start_epoch, args.epochs + 1):
@@ -327,13 +352,11 @@ def main(argv=None):
         if epoch % args.log_freq == 0:
             logger["loss_train"].append(loss_train)
             logger["entropy_train"].append(-neg_ent)
-            with open(jsonl_path, "a") as f:
-                f.write(json.dumps({
-                    "epoch": epoch, "loss_train": loss_train,
-                    "loss_first_step": float(losses[0]),
-                    "lr": glow_lr(state), "skipped_steps": skipped,
-                    "samples_per_sec": len(metrics) * args.batch_size
-                    / epoch_s, "epoch_seconds": epoch_s}) + "\n")
+            jsonl.log({"epoch": epoch, "loss_train": loss_train,
+                       "loss_first_step": losses[0], "lr": glow_lr(state),
+                       "skipped_steps": skipped,
+                       "samples_per_sec": len(metrics) * args.batch_size
+                       / epoch_s, "epoch_seconds": epoch_s})
         if epoch % args.ckpt_freq == 0:
             save_checkpoint(args.ckpt_dir, epoch, state,
                             meta={"epoch": epoch, "logger": logger})

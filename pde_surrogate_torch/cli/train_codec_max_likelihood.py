@@ -5,8 +5,10 @@ reference's train_codec_max_likelihood.py: the mixed-residual driver's
 skeleton with the MSE against solver labels, default 200 epochs): the same
 flags, defaults and run-dir naming, plus ``--device`` (default ``cuda``).
 The training split's labels come from the PCG solver, attached in place to
-an inputs-only file.  ``--dtype bf16`` and ``--n-devices > 1`` raise
-``NotImplementedError`` naming the ROADMAP item.
+an inputs-only file.  ``--dtype bf16``, ``--profile-epoch`` and, beyond the
+JAX driver's flags, ``--concat-free`` (run dir suffix ``_cf``) work as in
+the mixed-residual driver; ``--n-devices > 1`` raises
+``NotImplementedError`` (ROADMAP E3).
 
 Run:  python -m pde_surrogate_torch.cli.train_codec_max_likelihood \
           --data grf_kle512 --ntrain 4096 --batch-size 32
@@ -50,12 +52,16 @@ class Parser(BaseParser):
                           help="used only in the physics test loss")
         self.add_argument("--dtype", type=str, default="f32",
                           choices=["f32", "bf16"],
-                          help="conv compute dtype; only f32 is ported")
+                          help="conv compute dtype (parameters and BN "
+                               "statistics stay f32)")
         self.add_argument("--shared-stats", action=argparse.BooleanOptionalAction,
                           default=True,
                           help="accepted for run-dir compatibility: shared "
                                "and per-layer BN statistics are the same "
                                "math, which the port computes per layer")
+        self.add_argument("--concat-free", action="store_true", default=False,
+                          help="dense blocks without the per-layer prefix "
+                               "concats (models/codec.DenseBlock)")
         self.add_argument("--batch-size", type=int, default=32)
         self.add_argument("--test-batch-size", type=int, default=64)
         self.add_argument("--seed", type=int, default=1)
@@ -83,6 +89,9 @@ class Parser(BaseParser):
             hparams += f"_{args.upsample}"
         if args.dtype != "f32":
             hparams += f"_{args.dtype}"
+        if args.concat_free:
+            args.shared_stats = True
+            hparams += "_cf"
         if args.ntrain % args.batch_size or args.ntest % args.test_batch_size:
             self.error("--ntrain and --ntest must be multiples of "
                        "--batch-size and --test-batch-size")

@@ -3,10 +3,11 @@
 Counterpart of pde_surrogate_tpu/cli/train_codec_mixed_residual.py: the same
 flags, defaults and run-dir naming, plus ``--device`` (default ``cuda``).
 ``--find-lr`` runs the LR-range test instead of training; ``--init-from``
-warm-starts the weights.  Options whose code is not ported yet
-(``--dtype bf16``, ``--concat-free``, ``--n-devices > 1``,
-``--profile-epoch``) raise ``NotImplementedError`` naming the ROADMAP
-item; none is silently ignored.
+warm-starts the weights; ``--dtype bf16`` runs the convolutions in bf16
+with f32 parameters; ``--concat-free`` drops the dense blocks' per-layer
+concats; ``--profile-epoch N`` writes a profiler trace of epoch N to
+``<run dir>/training/profile/trace.json``.  ``--n-devices > 1`` is not
+ported yet and raises ``NotImplementedError`` (ROADMAP E3).
 
 Run:  python -m pde_surrogate_torch.cli.train_codec_mixed_residual \
           --data grf_kle512 --ntrain 4096 --batch-size 32
@@ -79,14 +80,19 @@ class Parser(BaseParser):
                                "depth ~ n)")
         self.add_argument("--dtype", type=str, default="f32",
                           choices=["f32", "bf16"],
-                          help="conv compute dtype; only f32 is ported")
+                          help="conv compute dtype (parameters and BN "
+                               "statistics stay f32)")
         self.add_argument("--shared-stats", action=argparse.BooleanOptionalAction,
                           default=True,
                           help="accepted for run-dir compatibility: shared "
                                "and per-layer BN statistics are the same "
-                               "math, which the port computes per layer")
+                               "math, which the port computes per layer "
+                               "(and per group with --concat-free)")
         self.add_argument("--concat-free", action="store_true", default=False,
-                          help="not ported")
+                          help="dense blocks without the per-layer prefix "
+                               "concats: per-group batch moments and "
+                               "sum-of-sliced-kernel convs (same math and "
+                               "checkpoint names; models/codec.DenseBlock)")
         self.add_argument("--batch-size", type=int, default=32)
         self.add_argument("--test-batch-size", type=int, default=64)
         self.add_argument("--seed", type=int, default=1)
@@ -136,6 +142,7 @@ class Parser(BaseParser):
         if args.dtype != "f32":
             hparams += f"_{args.dtype}"
         if args.concat_free:
+            args.shared_stats = True
             hparams += "_cf"
         elif not args.shared_stats:
             hparams += "_nss"

@@ -6,10 +6,11 @@ tasks of the reference's UQ suite — prediction at an input, uncertainty
 propagation, distribution estimates at LHS-chosen pixels, the reliability
 diagram and the NaN-robust test metric.  Arrays are NCHW.
 
-Each task writes the numbers its figures show (``.npy``, ``.txt``,
-``out_stats.mat``); the figures themselves wait for ROADMAP E1, and each
-task prints one note saying so.  Noise comes from generators seeded by
-(seed, task tag, index), the JAX package's ``fold_in`` counters.
+Each task draws the reference's figures (``viz/plot.py``; where
+matplotlib is missing, a note says so) and writes the numbers they show
+(``.npy``, ``.npz``, ``.txt``, ``out_stats.mat``).  Noise comes from
+generators seeded by (seed, task tag, index), the JAX package's
+``fold_in`` counters.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ from scipy.stats import norm as scipy_norm
 
 from ..ops.lhs import lhs
 from ..utils.config import make_generator
+from ..viz.plot import (load_pyplot, plot_MC2, plot_prediction_bayes2,
+                        plot_row, save_samples)
 
 __all__ = ["GlowSurrogate", "UQCondGlow"]
 
@@ -91,11 +94,6 @@ class GlowSurrogate:
                 vy.var(0, unbiased=False))
 
 
-def _figures_note(task: str) -> None:
-    print(f"[note] {task}: figures are not ported yet (ROADMAP E1); the "
-          f"numbers are written instead")
-
-
 class UQCondGlow:
     """The five UQ tasks over the Monte-Carlo and test sets.
 
@@ -106,15 +104,13 @@ class UQCondGlow:
       y_test_variation: the test set's per-channel sum of squared
         deviations (the R^2 denominator).
       post_dir: output directory.
+      ntrain: the training set's size, printed by the propagation figures.
       seed: base of every task's noise.
-
-    The figures' own options (the JAX tasks' ``manual_scale``, ``label``
-    and ``ntrain``) come with them (ROADMAP E1).
     """
 
     def __init__(self, surrogate, mc_data, test_data, y_test_variation,
                  post_dir: str, imsize: int, batch_size: int = 64,
-                 epochs: int = 0, seed: int = 0):
+                 ntrain: int = 0, epochs: int = 0, seed: int = 0):
         self.s = surrogate
         self.mc_x, self.mc_y = mc_data
         self.test_x, self.test_y = test_data
@@ -122,6 +118,7 @@ class UQCondGlow:
         self.post_dir = post_dir
         self.imsize = imsize
         self.batch_size = batch_size
+        self.ntrain = ntrain
         self.epochs = epochs
         self.seed = seed
         os.makedirs(post_dir, exist_ok=True)
@@ -134,10 +131,10 @@ class UQCondGlow:
             yield x[i:i + self.batch_size], y[i:i + self.batch_size]
 
     def plot_prediction_at_x(self, n_pred: int, plot_samples: bool = False):
-        """Target, predictive mean and variance (and 15 samples with
-        ``plot_samples``) at ``n_pred`` random test inputs, saved as
-        ``predict_at_x/pred_at_x_epoch{E}_idx{i}.npz`` (JAX uq.py:147-164).
-        """
+        """Target, predictive mean, std and error panels (and 15 samples
+        with ``plot_samples``) at ``n_pred`` random test inputs (JAX
+        uq.py:147-164), their numbers saved as
+        ``predict_at_x/pred_at_x_epoch{E}_idx{i}.npz``."""
         save_dir = os.path.join(self.post_dir, "predict_at_x")
         os.makedirs(save_dir, exist_ok=True)
         idx = np.random.default_rng(1).permutation(len(self.test_x))[:n_pred]
@@ -146,37 +143,47 @@ class UQCondGlow:
             mean, var = self.s.predict(x, self._gen(int(i)))
             out = {"target": self.test_y[i], "mean": mean[0].cpu().numpy(),
                    "var": var[0].cpu().numpy()}
+            plot_prediction_bayes2(save_dir, out["target"], out["mean"],
+                                   out["var"], self.epochs, int(i))
             if plot_samples:
                 out["samples"] = self.s.sample(
                     x, self._gen(int(i)))[:15, 0].cpu().numpy()
+                save_samples(save_dir, np.concatenate(
+                    [self.test_y[[i]], out["samples"]]), self.epochs, int(i),
+                    "samples", nrow=4)
             np.savez(os.path.join(
                 save_dir, f"pred_at_x_epoch{self.epochs}_idx{int(i)}.npz"),
                 **out)
-        _figures_note("predict_at_x")
 
-    def propagate_uncertainty(self, var_samples: int = 10):
-        """Monte-Carlo output statistics against the surrogate's
-        propagation (JAX uq.py:166-194), saved as ``out_stats/out_stats.mat``
-        (channel-first fields)."""
+    def propagate_uncertainty(self, manual_scale: bool = False,
+                              var_samples: int = 10):
+        """Monte-Carlo input and output statistics against the surrogate's
+        propagation (JAX uq.py:166-194): ``input_MC.png``, the mean and
+        variance panels, and ``out_stats/out_stats.mat`` (channel-first
+        fields)."""
         import scipy.io
         out_dir = os.path.join(self.post_dir, "out_stats")
         os.makedirs(out_dir, exist_ok=True)
         mean_y = self.mc_y.mean(0)
         var_y = self.mc_y.var(0)
+        plot_row([self.mc_x.mean(0)[0], self.mc_x.var(0)[0]], out_dir,
+                 "input_MC", plot_fn="contourf", cmap="jet")
         ee, ve, ev, vv = (a.cpu().numpy() for a in self.s.propagate(
             self.mc_x, self.seed, var_samples=var_samples,
             batch_size=self.batch_size))
+        plot_MC2(out_dir, mean_y, ee, ve, True, self.ntrain,
+                 manual_scale=manual_scale)
+        plot_MC2(out_dir, var_y, ev, vv, False, self.ntrain)
         scipy.io.savemat(os.path.join(out_dir, "out_stats.mat"), {
             "sample_mean": mean_y, "sample_var": var_y, "y_pred_EE": ee,
             "y_pred_VE": ve, "y_pred_EV": ev, "y_pred_VV": vv})
-        _figures_note("propagate_uncertainty")
         return ee, ve, ev, vv
 
     def plot_dist(self, num_loc: int):
         """p(y) at ``num_loc`` LHS-chosen pixels, surrogate against Monte
-        Carlo (JAX uq.py:196-234): the predictive means and the targets at
-        those pixels, (M, num_loc, C) each, saved with the locations in
-        ``dist_estimate/``."""
+        Carlo (JAX uq.py:196-234): a KDE figure per pixel, and the
+        predictive means and the targets at those pixels, (M, num_loc, C)
+        each, saved with the locations in ``dist_estimate/``."""
         if num_loc <= 0:
             raise ValueError("num_loc must be positive")
         locations = lhs(2, num_loc, criterion="c", rng=3)
@@ -194,12 +201,33 @@ class UQCondGlow:
         np.save(os.path.join(dist_dir, "locations.npy"), locations)
         np.save(os.path.join(dist_dir, "pred.npy"), pred)
         np.save(os.path.join(dist_dir, "target.npy"), target)
-        _figures_note("plot_dist")
+        plt = load_pyplot("the dist_estimate/loc_(...).pdf KDE figures")
+        if plt is not None:
+            from scipy.stats import gaussian_kde
+            for loc in range(len(locations)):
+                fig, axes = plt.subplots(1, 3, figsize=(12, 4))
+                for c, ax in enumerate(axes):
+                    for data, color, ls, label in (
+                            (target[:, loc, c], "b", "--", "Monte Carlo"),
+                            (pred[:, loc, c], "r", "-", "Surrogate")):
+                        if np.std(data) < 1e-12:
+                            continue
+                        kde = gaussian_kde(data)
+                        grid = np.linspace(data.min(), data.max(), 200)
+                        ax.plot(grid, kde(grid), color=color, ls=ls,
+                                label=label)
+                    ax.legend()
+                fig.savefig(os.path.join(
+                    dist_dir, f"loc_({locations[loc][0]:.5f}, "
+                              f"{locations[loc][1]:.5f}).pdf"), dpi=300)
+                plt.close(fig)
         return pred, target
 
-    def plot_reliability_diagram(self, save_time: bool = True):
+    def plot_reliability_diagram(self, label: str = "Conditional Glow",
+                                 save_time: bool = True):
         """Empirical coverage of the Gaussian predictive intervals at ten
-        probabilities (JAX uq.py:236-279), saved as
+        probabilities (JAX uq.py:236-279): a figure per channel
+        (``reliability_diagram_{c}.pdf``) and
         ``uncertainty_quality/reliability_diagram.txt`` (p, freq per
         channel)."""
         p_list = np.linspace(0.01, 0.99, 10)
@@ -222,11 +250,22 @@ class UQCondGlow:
         rel_dir = os.path.join(self.post_dir, "uncertainty_quality")
         os.makedirs(rel_dir, exist_ok=True)
         freq = np.stack(freq, 0)
+        plt = load_pyplot("uncertainty_quality/reliability_diagram_*.pdf")
+        for i in range(freq.shape[-1] if plt is not None else 0):
+            plt.figure()
+            plt.plot(p_list, freq[:, i], "r", label=label)
+            plt.plot(np.linspace(0, 1, 100), np.linspace(0, 1, 100), "k--",
+                     label="Ideal")
+            plt.xlabel("Probability")
+            plt.ylabel("Frequency")
+            plt.legend(loc="upper left")
+            plt.savefig(os.path.join(rel_dir, f"reliability_diagram_{i}.pdf"),
+                        dpi=300)
+            plt.close()
         out = np.zeros((len(p_list), 1 + n_channels))
         out[:, 0] = p_list
         out[:, 1:] = freq
         np.savetxt(os.path.join(rel_dir, "reliability_diagram.txt"), out)
-        _figures_note("plot_reliability_diagram")
         return freq
 
     def test_metric(self, handle_nan: bool = True):

@@ -3,8 +3,10 @@
 make_dataset -> train_codec_mixed_residual -> predict_codec at a tiny size
 (imsize 16, blocks 1,2,1, growth 4), the fvcg objective, the supervised
 (MLE) driver with its train labels attached in place, --init-from,
---find-lr, the label attach path of ensure_dataset, the options that are
-not ported yet, the run-dir names against the JAX parsers, the
+--find-lr, the label attach path of ensure_dataset, --dtype bf16,
+--concat-free and --profile-epoch in both codec drivers, the option that
+is not ported yet, the figures (by file name against the JAX codec
+driver's; the solvers'), the run-dir names against the JAX parsers, the
 single-instance solvers (FC and conv decoder, linear and nonlinear, their
 test sets, their divergence guard), the cGlow chain (train with
 --data-init -> predict_cglow -> post_cglow, a resume, the run-dir names
@@ -144,16 +146,91 @@ def test_ensure_dataset_attaches_labels_and_guards(tmp_path):
 
 
 @pytest.mark.parametrize("main,flag", [
-    (t_train.main, ["--dtype", "bf16"]), (t_train.main, ["--concat-free"]),
-    (t_train.main, ["--n-devices", "2"]),
-    (t_train.main, ["--profile-epoch", "1"]),
-    (t_mle.main, ["--dtype", "bf16"]), (t_mle.main, ["--n-devices", "2"])],
-    ids=["bf16", "concat-free", "n-devices", "profile-epoch", "mle-bf16",
-         "mle-n-devices"])
+    (t_train.main, ["--n-devices", "2"]), (t_mle.main, ["--n-devices", "2"])],
+    ids=["n-devices", "mle-n-devices"])
 def test_unported_options_raise(tmp_path, main, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP E3"):
         main(TINY + ["--exp-dir", str(tmp_path)] + flag)
     assert not (tmp_path / "codec").exists()
+
+
+@pytest.mark.parametrize("kind,flag,suffix", [
+    ("mixed_residual", ["--dtype", "bf16"], "_bf16"),
+    ("mixed_residual", ["--concat-free"], "_cf"),
+    ("mixed_residual", ["--profile-epoch", "1"], ""),
+    ("max_likelihood", ["--dtype", "bf16"], "_bf16"),
+    ("max_likelihood", ["--concat-free", "--dtype", "bf16"], "_bf16_cf"),
+    ("max_likelihood", ["--profile-epoch", "1"], "")],
+    ids=["bf16", "concat-free", "profile-epoch", "mle-bf16",
+         "mle-concat-free", "mle-profile-epoch"])
+def test_codec_options_run(tmp_path, kind, flag, suffix):
+    """--dtype bf16, --concat-free and --profile-epoch in both codec
+    drivers: one epoch with finite losses and metrics, in the run dir the
+    JAX parser names (the JAX MLE driver has no --concat-free: its suffix
+    is the mixed-residual driver's), served by predict_codec with the
+    recorded dtype and layout; the profiled epoch writes a trace."""
+    import importlib
+    main = t_train.main if kind == "mixed_residual" else t_mle.main
+    (state, logger), run = _tiny_run(main, tmp_path / "exp", tmp_path / "d",
+                                     "--epochs", "1", *flag)
+    assert run.name == ("grf_kle512_ntrain32_run1_bs16_lr0.001_epochs1_im16"
+                        + suffix)
+    if "--concat-free" not in flag or kind == "mixed_residual":
+        j_args = importlib.import_module(
+            f"pde_surrogate_tpu.cli.train_codec_{kind}").Parser().parse(
+            [a for a in TINY + SPLIT + flag if a not in ("--device", "cpu")]
+            + ["--epochs", "1", "--exp-dir", str(tmp_path / "j")])
+        assert run.name == os.path.basename(j_args.run_dir)
+    assert state.step == 2 and np.isfinite(logger["loss_train"]).all()
+    assert np.isfinite(logger["r2_test"]).all()
+    trace = run / "training" / "profile" / "trace.json"
+    assert trace.is_file() == ("--profile-epoch" in flag)
+    model = _codec_common.build_model(th5.load_args(str(run)), "cpu")
+    assert model.dtype == (torch.bfloat16 if "bf16" in flag else None)
+    assert model.features.EncBlock1.concat_free == ("--concat-free" in flag)
+    _predict(run, _val_file(tmp_path / "d"))
+
+
+def test_codec_figures_match_jax_cli(tmp_path):
+    """Without --no-plot the port's codec driver writes the figures and
+    stats files of the JAX driver, by name (6 prediction figures of the
+    last test batch at the last epoch, a .txt and a .pdf per curve)."""
+    from pde_surrogate_tpu.cli import train_codec_mixed_residual as j_train
+    argv = [a for a in TINY if a != "--no-plot"] + SPLIT + ["--epochs", "1"]
+    t_train.main(argv + ["--data-dir", str(tmp_path / "dt"), "--exp-dir",
+                         str(tmp_path / "t")])
+    j_train.main([a for a in argv if a not in ("--device", "cpu")] + [
+        "--data-dir", str(tmp_path / "dj"), "--exp-dir", str(tmp_path / "j")])
+    names = {}
+    for d in ("j", "t"):
+        (train_dir,) = (tmp_path / d).rglob("training")
+        names[d] = sorted(str(p.relative_to(train_dir))
+                          for p in train_dir.rglob("*") if p.is_file())
+    assert names["t"] == names["j"]
+    assert sum(n.startswith("predictions/pred_epoch1_")
+               for n in names["t"]) == 6
+    assert "loss_train.pdf" in names["t"]
+
+
+@pytest.mark.parametrize("cli,extra,figures", [
+    (t_conv, ["--blocks", "1,1", "--animate", "--test-freq", "1"],
+     ["animation.gif", "loss.pdf", "pred_1.png", "pred_2.png"]),
+    (t_fc, ["--dim-hidden", "16", "--layers-hidden", "2", "--n-colloc",
+            "64", "--test-freq", "2"],
+     ["input_logK.png", "loss.pdf", "pred_epoch2_1.png", "solution_HR.png"])],
+    ids=["conv-animate", "fc"])
+def test_solver_figures(tmp_path, cli, extra, figures):
+    """Without --no-plot the solvers draw the JAX CLIs' figures: a test
+    epoch's panels (with --animate numbered frames and animation.gif), the
+    loss curve, and for the FC net the 640^2 render of u beside log K."""
+    argv = [a for a in _solver_argv(tmp_path, "--epochs", "2",
+                                    "--adam-warmup", "5", *extra)
+            if a != "--no-plot"]
+    cli.main(argv)
+    (run,) = [p.parent for p in (tmp_path / "e").rglob("loss.txt")]
+    got = sorted(p.name for p in run.iterdir()
+                 if p.suffix in (".png", ".pdf", ".gif"))
+    assert got == figures
 
 
 def _val_file(data):

@@ -229,3 +229,17 @@ def test_glow_ill_conditioned_on_gpu_near_float64(cuda):
     for name, err, bound in card_vs_float64(on_gpu, f64):
         assert torch.isfinite(on_gpu[name]).all(), name
         assert err <= bound, (name, err, bound)
+
+
+def test_codec_options_on_gpu_match_plain(cuda):
+    """concat_free, remat and bf16 on the card against the plain f32 model
+    on the card, DenseED [2,3,2]/4/8 at 32^2, B=4, by the rules of
+    ``tools/codec_check`` (the CPU tests' bounds, or the card's own float32
+    error for concat-free and the CPU's own bf16 error for bf16, where
+    larger), and bf16 really computing its convolutions in bf16."""
+    from pde_surrogate_torch.tools.codec_check import run_variant_checks
+    rows, steps = run_variant_checks(cuda, imsize=32, blocks=[2, 3, 2],
+                                     growth=4, init=8, batch=4)
+    for name, err, bound, _ in rows:
+        assert err <= bound, f"{name}: {err} > {bound}"
+    assert steps["bf16"]["conv_dtype"] == torch.bfloat16

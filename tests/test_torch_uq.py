@@ -172,6 +172,7 @@ def test_uq_tasks_match_jax(tmp_path):
     for task in ("test_metric", "plot_reliability_diagram"):
         getattr(j, task)()
         getattr(p, task)()
+    j.propagate_uncertainty(var_samples=2)
     p.propagate_uncertainty(var_samples=2)
     jp, jt = j.plot_dist(3)
     pp, pt = p.plot_dist(3)
@@ -194,8 +195,15 @@ def test_uq_tasks_match_jax(tmp_path):
                       _Stub(False).propagate(None, None)):
         np.testing.assert_array_equal(mat[key], np.moveaxis(
             np.asarray(f), -1, 0))
-    assert sorted(os.listdir(tmp_path / "t" / "dist_estimate")) == [
-        "locations.npy", "pred.npy", "target.npy"]
+    # the same figures, and the numbers of the distribution estimate
+    files = {d: {os.path.relpath(os.path.join(r, f), tmp_path / d)
+                 for r, _, fs in os.walk(tmp_path / d) for f in fs}
+             for d in ("j", "t")}
+    assert files["t"] == files["j"] | {
+        f"dist_estimate/{n}.npy" for n in ("locations", "pred", "target")}
+    assert {f for f in files["j"] if f.endswith(".pdf")} >= {
+        "uncertainty_quality/reliability_diagram_0.pdf",
+        "out_stats/pred_mean_vs_MC.pdf"}
 
 
 def test_uq_test_metric_all_nan_matches_jax(tmp_path):
