@@ -54,6 +54,14 @@
    under bf16, concat-free (f32, bf16) and remat, and the cGlow's
    reverse-KL step (sobel, fvcg); kernel launches and device busy time of
    one step from torch.profiler, and its conv and matmul FLOPs.
+8. ``[dist]``, in a one-rank NCCL group: the DenseED and cGlow training
+   steps at full width under the data mesh (BatchNorm moments reduced over
+   it, gradients all-reduced) against the plain steps, 3 steps in float64
+   and the first loss in float32, timed against them; the row-sharded
+   Darcy solve against K1 on 64 fields of 64^2, timed against it; then
+   the codec CLI with --n-devices 1 in a fresh data dir (K1 labels its val
+   split on the rank) against the run without the flag (with two cards,
+   --n-devices 2 too).
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Any failed check raises
 and the script exits non-zero without that line; so does a machine without
@@ -1089,6 +1097,152 @@ def phase_step_profile():
         del fn
 
 
+DIST_CODEC = dict(in_channels=1, out_channels=3, imsize=64, blocks=[6, 8, 6],
+                  growth_rate=16, init_features=48)
+DIST_GLOW = dict(img_size=64, x_channels=1, y_channels=3, enc_blocks=[3, 4, 4],
+                 flow_blocks=[6, 6, 6])
+K1_TWIN_ATOL = 5e-5     # K1 against its plain PyTorch twin (tests, [K1])
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(((a.double() - b.double()).abs() / b.double().abs()).max())
+
+
+def _turns(plain, mesh, reps: int, warmup: int) -> tuple[float, float]:
+    """ms per call of ``plain`` and of ``mesh`` by CUDA events, timed in
+    turns (plain, mesh, mesh, plain) and averaged per version."""
+    p1 = cuda_ms(plain, reps, warmup)
+    m1 = cuda_ms(mesh, reps, warmup)
+    m2 = cuda_ms(mesh, reps, warmup)
+    p2 = cuda_ms(plain, reps, warmup)
+    return (p1 + p2) / 2, (m1 + m2) / 2
+
+
+def _dist_checks(mesh) -> None:
+    """[dist] on one rank of a one-rank NCCL group: the DenseED and cGlow
+    steps under the mesh (BatchNorm moments reduced over it, gradients
+    all-reduced) against the plain steps, three steps in float64 and the
+    first loss in float32 (``tools/dist_check``: three float32 steps are
+    ill-conditioned), with both float32 steps timed; the sharded Darcy
+    solve against K1."""
+    from pde_surrogate_torch.data.grf import sample_kle
+    from pde_surrogate_torch.models.codec import DenseED
+    from pde_surrogate_torch.ops.kernels.cg_darcy import solve_darcy_cg
+    from pde_surrogate_torch.parallel.spatial import (solve_darcy_spatial,
+                                                      spatial_mesh)
+    from pde_surrogate_torch.tools import dist_check as dc
+    from pde_surrogate_torch.tools.glow_check import glow_model
+    card = gpu_name_power()
+    dev = mesh.device
+    log(f"[dist] one-rank NCCL group: rank {mesh.rank} of "
+        f"{mesh.world_size} on {mesh.device}")
+
+    torch.manual_seed(0)
+    sd = DenseED(**DIST_CODEC).state_dict()
+    x = torch.from_numpy(sample_kle(32, 64, 512, rng=3))[:, None]
+    m64 = dc.codec_run(mesh, sd, x, DIST_CODEC, 3, dev, torch.float64)
+    p64 = dc.codec_run(None, sd, x, DIST_CODEC, 3, dev, torch.float64)
+    m32 = dc.codec_run(mesh, sd, x, DIST_CODEC, 1, dev)
+    p32 = dc.codec_run(None, sd, x, DIST_CODEC, 1, dev)
+    loss_rel = _rel(m64["losses"], p64["losses"])
+    state_err = max(float((v - p64["state"][k]).abs().max())
+                    for k, v in m64["state"].items()
+                    if not k.endswith("num_batches_tracked"))
+    first_rel = _rel(m32["losses"], p32["losses"])
+    log(f"[dist] codec: DenseED [6,8,6]/16/48 64^2 batch 32, 3 steps in "
+        f"float64: loss {loss_rel:.3e} relative (bound "
+        f"{dc.CODEC_LOSS_RTOL:g}), parameters and BN buffers {state_err:.3e} "
+        f"(bound {dc.CODEC_STATE_ATOL:g}); first float32 loss "
+        f"{first_rel:.3e} relative")
+    check(loss_rel <= dc.CODEC_LOSS_RTOL and first_rel <= dc.CODEC_LOSS_RTOL
+          and state_err <= dc.CODEC_STATE_ATOL,
+          "[dist] codec: the mesh steps differ from the plain steps")
+    step_p, _ = dc.codec_step(None, sd, x, DIST_CODEC, dev)
+    step_m, _ = dc.codec_step(mesh, sd, x, DIST_CODEC, dev)
+    ms_p, ms_m = _turns(step_p, step_m, reps=10, warmup=3)
+    log(f"[dist] codec step f32: plain {ms_p:.3f} ms, mesh {ms_m:.3f} ms "
+        f"({ms_m / ms_p:.2f}x); {card}")
+    del step_p, step_m
+
+    # heads at 1e-3, as [glow]'s well-conditioned case: with the zero
+    # init's heads the coupling nets, and their BatchNorm, do not act
+    sd = glow_model(64, DIST_GLOW["enc_blocks"], DIST_GLOW["flow_blocks"],
+                    1e-3, "cpu").state_dict()
+    x = torch.from_numpy(sample_kle(32, 64, 512, rng=4))[:, None]
+    m64 = dc.glow_run(mesh, sd, x, DIST_GLOW, 3, None, dev, torch.float64)
+    p64 = dc.glow_run(None, sd, x, DIST_GLOW, 3, None, dev, torch.float64)
+    m32 = dc.glow_run(mesh, sd, x, DIST_GLOW, 1, None, dev)
+    p32 = dc.glow_run(None, sd, x, DIST_GLOW, 1, None, dev)
+    loss_rel = _rel(m64["losses"], p64["losses"])
+    first_rel = _rel(m32["losses"], p32["losses"])
+    log(f"[dist] cglow: enc [3,4,4] flow [6,6,6] 64^2 batch 32, 3 losses in "
+        f"float64 {loss_rel:.3e} relative, first float32 loss "
+        f"{first_rel:.3e} (bound {dc.GLOW_LOSS_RTOL:g})")
+    check(loss_rel <= dc.GLOW_LOSS_RTOL and first_rel <= dc.GLOW_LOSS_RTOL,
+          "[dist] cglow: the mesh losses differ from the plain losses")
+    step_p, _ = dc.glow_step(None, sd, x, DIST_GLOW, dev)
+    step_m, _ = dc.glow_step(mesh, sd, x, DIST_GLOW, dev)
+    ms_p, ms_m = _turns(step_p, step_m, reps=5, warmup=2)
+    log(f"[dist] cglow step f32: plain {ms_p:.3f} ms, mesh {ms_m:.3f} ms "
+        f"({ms_m / ms_p:.2f}x); {card}")
+    del step_p, step_m
+    torch.cuda.empty_cache()
+
+    smesh = spatial_mesh(1, mesh.device)
+    K = torch.from_numpy(sample_kle(64, 64, 512, rng=5)).to(dev)
+    n_iter = 24 * 64
+    u_sp = solve_darcy_spatial(K, smesh, n_iter)
+    u_k1 = solve_darcy_cg(K, n_iter)
+    err = float((u_sp - u_k1).abs().max())
+    ms_sp = cuda_ms(lambda: solve_darcy_spatial(K, smesh, n_iter), reps=2)
+    ms_k1 = cuda_ms(lambda: solve_darcy_cg(K, n_iter), reps=20)
+    log(f"[dist] spatial: solve_darcy_spatial on 1 rank, 64 fields of 64^2, "
+        f"{n_iter} iterations: max |u - K1| {err:.3e} (bound "
+        f"{K1_TWIN_ATOL:g}, K1's own rule against its plain twin); {ms_sp:.3f} ms against "
+        f"K1's {ms_k1:.3f} ms ({ms_sp / ms_k1:.0f}x); {card}")
+    check(err <= K1_TWIN_ATOL, "[dist] spatial: the sharded solve differs "
+                               "from K1")
+
+
+def phase_dist(path: "MainPath") -> None:
+    """[dist]: the mesh checks in a one-rank NCCL group (a file store in a
+    temporary directory, destroyed afterwards), then the codec CLI with
+    --n-devices 1 (one rank in this process; a fresh data dir, whose val
+    labels K1 solves on that rank) against the same run without it: one
+    epoch of one step, each logged metric within 1e-5 relative.  With two
+    cards --n-devices 2 too."""
+    from pde_surrogate_torch.cli import train_codec_mixed_residual as train
+    from pde_surrogate_torch.parallel.launch import run
+    n_cards = torch.cuda.device_count()
+    log(f"[dist] torch.cuda.device_count() = {n_cards}")
+    run(_dist_checks, 1, device="cuda", workdir=path.tmp)
+
+    data = os.path.join(path.tmp, "data_dist")
+    argv = (path.WIDTH + ["--ntrain", "32", "--ntest", "64", "--epochs", "1",
+                          "--data-dir", data])
+
+    def cli(label, exp, *extra, needs_k1=False):
+        return path.drive(label, lambda: train.main(
+            argv + ["--exp-dir", os.path.join(path.tmp, exp), *extra]),
+            needs_k1)[1]
+
+    dp = cli("dist train sobel --n-devices 1", "dist1", "--n-devices", "1",
+             needs_k1=True)
+    one = cli("dist train sobel", "dist0")
+    runs = [("--n-devices 1", dp)]
+    if n_cards >= 2:
+        runs.append(("--n-devices 2", cli("dist train sobel --n-devices 2",
+                                          "dist2", "--n-devices", "2")))
+    else:
+        log("[dist] --n-devices 2: needs two cards; this machine has one")
+    for label, got in runs:
+        rel = max(_rel(torch.tensor(got[k]), torch.tensor(one[k]))
+                  for k in one)
+        log(f"[dist] cli {label} against one process: metrics within "
+            f"{rel:.3e} relative (bound 1e-5)")
+        check(rel <= 1e-5, f"[dist] cli {label}: metrics differ")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1108,13 +1262,17 @@ def main() -> int:
     phase_codec_variants()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        launches = MainPath(tmp).run()
+        path = MainPath(tmp)
+        path.run()
+        phase_step_times()
+        phase_solver_step_times()
+        phase_glow_step_times()
+        phase_step_profile()
+        phase_dist(path)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    phase_step_times()
-    phase_solver_step_times()
-    phase_glow_step_times()
-    phase_step_profile()
+    launches = sum(path.launches.values())
+    log(f"[main] K1 launches over every path: {launches}")
 
     kernels = [{
         "name": "cg_darcy", "route": "cuda",

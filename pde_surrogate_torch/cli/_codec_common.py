@@ -10,11 +10,17 @@ consistency and prediction figures, checkpoints with meta, warm starts
 (``--init-from``), label-free checkpoint selection, the stats dump and the
 LR-range test (``--find-lr``); the dataset files of the cGlow CLIs
 (``resolve_dataset_files``) and of its UQ suite (``uq_dataset_files``).
+
+``--n-devices N`` trains data-parallel on N ranks (``parallel.launch``):
+rank 0 generates the dataset files while the others wait, every rank steps
+on its shard of each global batch, the test pass gathers every rank's
+per-sample errors, and rank 0 alone prints, logs, plots and saves.  The
+LR-range test runs in one process, as in the JAX package.
 """
 
 from __future__ import annotations
 
-import copy
+import functools
 import os
 import time
 
@@ -27,6 +33,9 @@ from ..data.hdf5 import (Writer, dataset_path, dataset_shapes, load_data,
 from ..data.pipeline import DeviceDataset
 from ..models.codec import DenseED, module_size
 from ..ops.filters import SobelFilter
+from ..parallel.launch import run_driver
+from ..parallel.mesh import (all_gather, all_mean, is_main, rank0_first,
+                             replicate)
 from ..train.checkpoint import (latest_epoch, restore_checkpoint,
                                 restore_weights, save_checkpoint,
                                 select_consistency_epoch)
@@ -40,8 +49,7 @@ from ..viz.plot import load_pyplot, plot_prediction_det, save_stats
 from .make_dataset import solve_labels
 
 __all__ = ["ensure_dataset", "resolve_dataset_files", "uq_dataset_files",
-           "reject_unported", "build_model", "run_codec_training",
-           "run_find_lr"]
+           "build_model", "run_codec", "run_codec_training", "run_find_lr"]
 
 DTYPES = {"f32": None, "bf16": torch.bfloat16}
 
@@ -175,14 +183,6 @@ def uq_dataset_files(run_args, n_mc: int, ntest: int, device="cuda"):
     return mc, test
 
 
-def reject_unported(args):
-    """Raise on the codec CLI option whose code this package does not have
-    yet, naming its ROADMAP item; it is never silently ignored."""
-    if args.n_devices is not None and args.n_devices > 1:
-        raise NotImplementedError("not ported yet: --n-devices > 1 "
-                                  "(ROADMAP E3)")
-
-
 def build_model(args, device) -> DenseED:
     """The DenseED of a run (training args or a run dir's args.txt; runs
     recorded without ``dtype`` / ``concat_free`` are f32 with concats)."""
@@ -204,16 +204,27 @@ def _physics_kwargs(args) -> dict:
                 fvcg_iters=getattr(args, "fvcg_iters", None))
 
 
-def _train_data(args, loss_kind: str, device):
+def _train_data(args, loss_kind: str, device, mesh=None):
     """``(train DeviceDataset, test file)``: the training split holds K only
     for label-free training and (K, labels) for MLE, whose train file gets
-    its labels from the PCG solver when it has none."""
+    its labels from the PCG solver when it has none (on rank 0 of a mesh,
+    the others waiting)."""
     mle = loss_kind == "mle"
-    train_file, test_file = resolve_dataset_files(args, need_train_output=mle)
+    with rank0_first(mesh):
+        train_file, test_file = resolve_dataset_files(args,
+                                                      need_train_output=mle)
     x_train, y_train, _ = load_data(train_file, args.ntrain, only_input=not mle)
     arrays = (x_train,) if y_train is None else (x_train, y_train)
     return DeviceDataset(*arrays, batch_size=args.batch_size, seed=args.seed,
-                         device=device), test_file
+                         device=device, mesh=mesh), test_file
+
+
+def _state_kw(args) -> dict:
+    """The optimizer and OneCycle settings of a training run."""
+    return dict(lr_max=args.lr,
+                total_steps=args.epochs * (args.ntrain // args.batch_size),
+                div_factor=args.lr_div, pct_start=args.lr_pct,
+                weight_decay=args.weight_decay)
 
 
 def _train_step(state, loss_kind: str, sobel, args, physics_kw: dict):
@@ -238,30 +249,51 @@ def _warm_start(model, init_from: str) -> None:
     print(f"Warm-started weights from {src_ckpt} epoch {ep}")
 
 
-def run_codec_training(args, loss_kind: str):
-    """The epoch loop of both codec CLIs; ``loss_kind`` 'mixed_residual'
-    (label-free, ``args.physics``) or 'mle' (MSE against solver labels).
-    Returns ``(state, logger)``."""
+def run_codec(args, loss_kind: str):
+    """A codec CLI's work after parsing: the LR-range test, training in
+    this process, or (``--n-devices``) data-parallel training, which
+    returns rank 0's ``(state, logger)``."""
+    if args.find_lr:
+        return run_find_lr(args, loss_kind)
+    if args.n_devices is None:
+        return run_codec_training(args, loss_kind)
+    return run_driver(functools.partial(run_codec_training,
+                                        loss_kind=loss_kind), args,
+                      _read_back)
+
+
+def _read_back(args, ckpt_dir: str):
+    """``(state, logger)`` of a data-parallel run from the checkpoint rank
+    0 saved at its end (epoch 0 of ``ckpt_dir``)."""
     device = select_device(args.device)
+    state = create_state(build_model(args, device), **_state_kw(args))
+    state, meta = restore_checkpoint(ckpt_dir, 0, state, with_meta=True)
+    return state, meta["logger"]
+
+
+def run_codec_training(args, loss_kind: str, mesh=None):
+    """The epoch loop of both codec CLIs; ``loss_kind`` 'mixed_residual'
+    (label-free, ``args.physics``) or 'mle' (MSE against solver labels);
+    ``mesh``: this rank's data mesh.  Returns ``(state, logger)``."""
+    device = mesh.device if mesh is not None else select_device(args.device)
+    rank0 = is_main(mesh)
     args.train_dir = os.path.join(args.run_dir, "training")
     args.pred_dir = os.path.join(args.train_dir, "predictions")
     os.makedirs(args.pred_dir, exist_ok=True)
 
     model = build_model(args, device)
-    train_ds, test_file = _train_data(args, loss_kind, device)
+    train_ds, test_file = _train_data(args, loss_kind, device, mesh)
     x_test, y_test, stats = load_data(test_file, args.ntest, only_input=False,
                                       return_stats=True)
     print(f"Test output variation per channel: {stats['y_variation']}")
     y_variation = torch.as_tensor(stats["y_variation"], device=device)
     test_ds = DeviceDataset(x_test, y_test, batch_size=args.test_batch_size,
-                            seed=args.seed + 1, device=device, shuffle=False)
+                            seed=args.seed + 1, device=device, shuffle=False,
+                            mesh=mesh)
 
-    total_steps = args.epochs * len(train_ds)
-    print(f"total steps: {total_steps}")
-    state_kw = dict(lr_max=args.lr, total_steps=total_steps,
-                    div_factor=args.lr_div, pct_start=args.lr_pct,
-                    weight_decay=args.weight_decay)
-    state = create_state(model, **state_kw)
+    state_kw = _state_kw(args)
+    print(f"total steps: {state_kw['total_steps']}")
+    state = create_state(model, **state_kw, mesh=mesh)
     n_params, n_layers = module_size(model)
     print(f"# params {n_params}, # conv layers {n_layers}")
 
@@ -286,6 +318,8 @@ def run_codec_training(args, loss_kind: str):
         start_epoch = args.ckpt_epoch + 1
         print(f"Loaded ckpt at epoch {args.ckpt_epoch}; resume "
               f"from {start_epoch} to {args.epochs}")
+    if mesh is not None:
+        replicate(model, mesh)
 
     # resume continues the saved history, so the stats curves and the
     # label-free checkpoint selection see pre-resume epochs too
@@ -297,7 +331,7 @@ def run_codec_training(args, loss_kind: str):
 
     def test(epoch, st, record=True):
         eval_step = make_eval_step(st, sobel, args.weight_bound, **physics_kw)
-        want_plot = (record and not args.no_plot
+        want_plot = (record and rank0 and not args.no_plot
                      and (epoch % args.plot_freq == 0 or epoch == args.epochs))
         losses, rel, sse, cons = [], [], [], []
         for x, y in test_ds.batches(epoch):
@@ -307,11 +341,12 @@ def run_codec_training(args, loss_kind: str):
             sse.append(out["sse"])
             cons.append(out["consistency"])
             plot_batch = (y, out["output"])
-        # one host sync for the whole test set
-        loss_test = float(torch.stack(losses).mean())
-        relative_l2 = torch.cat(rel).mean(0).cpu().numpy()
-        r2 = r2_score(torch.cat(sse).sum(0), y_variation).cpu().numpy()
-        consistency = float(torch.stack(cons).mean())
+        # one host sync for the whole test set; every rank's samples
+        loss_test = float(all_mean(torch.stack(losses).mean(), mesh))
+        relative_l2 = all_gather(torch.cat(rel), mesh).mean(0).cpu().numpy()
+        r2 = r2_score(all_gather(torch.cat(sse), mesh).sum(0),
+                      y_variation).cpu().numpy()
+        consistency = float(all_mean(torch.stack(cons).mean(), mesh))
         if record and epoch % args.ckpt_freq == 0:
             ckpt_consistency.append((epoch, consistency))
         print(f"Epoch {epoch}: test r2-score: {r2}")
@@ -337,7 +372,7 @@ def run_codec_training(args, loss_kind: str):
     for epoch in range(start_epoch, args.epochs + 1):
         timer.start()
         with profile_trace(os.path.join(args.train_dir, "profile"),
-                           enabled=epoch == args.profile_epoch,
+                           enabled=rank0 and epoch == args.profile_epoch,
                            device=device):
             losses = torch.stack([train_step(*batch)["loss"]
                                   for batch in train_ds.batches(epoch)])
@@ -350,11 +385,12 @@ def run_codec_training(args, loss_kind: str):
         print(f"Epoch {epoch}: training loss: {loss_train:.6f}")
         if epoch % args.log_freq == 0:
             logger["loss_train"].append(loss_train)
-            jsonl.log({"epoch": epoch, "loss_train": loss_train,
-                       "loss_first_step": losses[0],
-                       "lr": current_lr(state),
-                       "samples_per_sec": rate["samples_per_sec"],
-                       "epoch_seconds": rate["seconds"]})
+            if rank0:
+                jsonl.log({"epoch": epoch, "loss_train": loss_train,
+                           "loss_first_step": losses[0],
+                           "lr": current_lr(state),
+                           "samples_per_sec": rate["samples_per_sec"],
+                           "epoch_seconds": rate["seconds"]})
         # eval before checkpointing, so the meta sidecar carries this
         # epoch's consistency record; save even if eval raises
         try:
@@ -376,15 +412,17 @@ def run_codec_training(args, loss_kind: str):
         print(f"Label-free checkpoint selection (min flux-pressure "
               f"consistency): epoch {sel_epoch} ({sel_cons:.4f})")
         if sel_epoch != args.epochs:
-            sel_state = create_state(copy.deepcopy(model), **state_kw)
+            sel_state = create_state(build_model(args, device), **state_kw,
+                                     mesh=mesh)
             restore_checkpoint(args.ckpt_dir, sel_epoch, sel_state)
             print(f"Metrics at the selected checkpoint (epoch {sel_epoch}):")
             test(sel_epoch, sel_state, record=False)
-    save_stats(args.train_dir, logger, "loss_train", "loss_test",
-                "nrmse_test", "r2_test", "consistency_test")
     args.training_time = training_time
     args.n_params, args.n_layers = n_params, n_layers
-    save_args(args.run_dir, args)
+    if rank0:
+        save_stats(args.train_dir, logger, "loss_train", "loss_test",
+                   "nrmse_test", "r2_test", "consistency_test")
+        save_args(args.run_dir, args)
     return state, logger
 
 

@@ -13,8 +13,12 @@ Unless ``--no-plot``, every ``--plot-freq``-th and the last epoch draw
 the predictive mean, std and error, and 15 samples, of random fields of
 the first test batch (20 draws each) into ``training/predictions``.
 ``--no-scan-epochs`` is accepted and changes nothing (the port always runs
-the per-step loop), nor does ``--profile-epoch``, as in the JAX CLI;
-``--n-devices > 1`` raises ``NotImplementedError`` (ROADMAP E3).
+the per-step loop), nor does ``--profile-epoch``, as in the JAX CLI.
+``--n-devices N`` trains data-parallel on N ranks (``parallel/launch.py``):
+rank 0 generates the dataset files, the ActNorm data-init runs on the full
+first global batch on every rank, each rank steps and evaluates on its
+shard of every global batch with the global batch's noise, and rank 0
+alone prints, logs, plots and saves.
 
 Run:  python -m pde_surrogate_torch.cli.train_cglow_reverse_kl \
           --beta 150 --kle 512 --imsize 64 --data-init
@@ -34,6 +38,9 @@ from ..data.pipeline import DeviceDataset
 from ..models.codec import module_size
 from ..models.glow import MultiScaleCondGlow
 from ..ops.filters import SobelFilter
+from ..parallel.launch import check_devices, run_driver
+from ..parallel.mesh import (all_gather, all_mean, is_main, rank0_first,
+                             replicate)
 from ..train.checkpoint import (latest_epoch, restore_checkpoint,
                                 restore_weights, save_checkpoint)
 from ..train.glow_trainer import (create_glow_state, data_init_actnorm,
@@ -45,7 +52,7 @@ from ..utils.observability import JsonlLogger
 from ..viz.plot import plot_prediction_bayes2, save_samples, save_stats
 from ._codec_common import resolve_dataset_files
 
-__all__ = ["Parser", "main", "build_model"]
+__all__ = ["Parser", "main", "train", "build_model"]
 
 
 class Parser(BaseParser):
@@ -109,7 +116,8 @@ class Parser(BaseParser):
         self.add_argument("--test-batch-size", type=int, default=64)
         self.add_argument("--seed", type=int, default=1)
         self.add_argument("--n-devices", type=int, default=None,
-                          help="data-parallel devices; only one is ported")
+                          help="train data-parallel on this many devices "
+                               "(one rank each; parallel/launch.py)")
         self.add_argument("--no-scan-epochs", dest="scan_epochs",
                           action="store_false", default=True,
                           help="accepted for compatibility: the port always "
@@ -124,9 +132,7 @@ class Parser(BaseParser):
 
     def parse(self, argv=None):
         args = self.parse_args(argv)
-        if args.n_devices is not None and args.n_devices > 1:
-            raise NotImplementedError("not ported yet: --n-devices > 1 "
-                                      "(ROADMAP E3)")
+        check_devices(args.n_devices, args.device)
         args.LU_decompose = not args.no_LU_decompose
         if len(args.enc_blocks) != len(args.flow_blocks):
             self.error("--enc-blocks and --flow-blocks must have equal "
@@ -215,15 +221,43 @@ def build_model(run_args, device) -> MultiScaleCondGlow:
 
 
 def main(argv=None):
+    """Train; returns ``(state, logger)`` (rank 0's under --n-devices)."""
     args = Parser().parse(argv)
-    device = select_device(args.device)
+    if args.n_devices is None:
+        return train(args)
+    return run_driver(train, args, _read_back)
+
+
+def _state(args, model, mesh=None):
+    return create_glow_state(model, lr_max=args.lr,
+                             total_steps=args.epochs
+                             * (args.ntrain // args.batch_size),
+                             div_factor=args.lr_div, pct_start=args.lr_pct,
+                             weight_decay=args.weight_decay, seed=args.seed,
+                             mesh=mesh)
+
+
+def _read_back(args, ckpt_dir: str):
+    """``(state, logger)`` of a data-parallel run from the checkpoint rank
+    0 saved at its end (epoch 0 of ``ckpt_dir``)."""
+    state = _state(args, build_model(args, select_device(args.device)))
+    state, meta = restore_checkpoint(ckpt_dir, 0, state, with_meta=True)
+    return state, meta["logger"]
+
+
+def train(args, mesh=None):
+    """The training run of parsed ``args``; ``mesh``: this rank's data
+    mesh.  Returns ``(state, logger)``."""
+    device = mesh.device if mesh is not None else select_device(args.device)
+    rank0 = is_main(mesh)
     args.train_dir = os.path.join(args.run_dir, "training")
     args.pred_dir = os.path.join(args.train_dir, "predictions")
     os.makedirs(args.pred_dir, exist_ok=True)
 
     # inputs for training (labels too under --data-init), labelled val
-    train_file, test_file = resolve_dataset_files(
-        args, need_train_output=args.data_init)
+    with rank0_first(mesh):
+        train_file, test_file = resolve_dataset_files(
+            args, need_train_output=args.data_init)
     x_train, y_train, _ = load_data(train_file, args.ntrain,
                                     only_input=not args.data_init)
     x_test, y_test, stats = load_data(test_file, args.ntest, only_input=False,
@@ -235,13 +269,11 @@ def main(argv=None):
 
     model = build_model(args, device)
     train_ds = DeviceDataset(x_train, batch_size=args.batch_size,
-                             seed=args.seed, device=device)
+                             seed=args.seed, device=device, mesh=mesh)
     test_ds = DeviceDataset(x_test, y_test, batch_size=args.test_batch_size,
-                            seed=args.seed + 1, device=device, shuffle=False)
-    total_steps = args.epochs * len(train_ds)
-    state = create_glow_state(model, lr_max=args.lr, total_steps=total_steps,
-                              div_factor=args.lr_div, pct_start=args.lr_pct,
-                              weight_decay=args.weight_decay, seed=args.seed)
+                            seed=args.seed + 1, device=device, shuffle=False,
+                            mesh=mesh)
+    state = _state(args, model, mesh)
     n_params, n_layers = module_size(model)
     print(f"({n_params}, {n_layers})")
 
@@ -284,8 +316,11 @@ def main(argv=None):
     if args.data_init and start_epoch == 1 and not warm_started:
         xb, yb = (torch.from_numpy(a[:args.batch_size]).to(device)
                   for a in (x_train, y_train))
+        # the full first global batch on every rank, never a shard
         data_init_actnorm(state, yb, xb)
         print("Finished data initialization of Actnorm")
+    if mesh is not None:
+        replicate(model, mesh)
 
     def plot(epoch, x, y):
         """Mean, std and error, and 15 samples, of 6 random fields of the
@@ -317,15 +352,16 @@ def main(argv=None):
             rel.append(out["rel_l2"])
             sse.append(out["sse"])
         # one host sync for the whole test set; the entropy is the mean
-        # over the test batches
-        loss_test = float(torch.stack(losses).mean())
-        ent = float(torch.stack(ents).mean())
-        relative_l2 = torch.cat(rel).mean(0).cpu().numpy()
-        r2 = r2_score(torch.cat(sse).sum(0), y_variation).cpu().numpy()
+        # over the test batches; every rank's samples
+        loss_test = float(all_mean(torch.stack(losses).mean(), mesh))
+        ent = float(all_mean(torch.stack(ents).mean(), mesh))
+        relative_l2 = all_gather(torch.cat(rel), mesh).mean(0).cpu().numpy()
+        r2 = r2_score(all_gather(torch.cat(sse), mesh).sum(0),
+                      y_variation).cpu().numpy()
         print(f"Epoch {epoch}: test r2-score: {r2}")
         print(f"Epoch {epoch}: test relative l2: {relative_l2}")
-        if not args.no_plot and (epoch % args.plot_freq == 0
-                                 or epoch == args.epochs):
+        if rank0 and not args.no_plot and (epoch % args.plot_freq == 0
+                                           or epoch == args.epochs):
             plot(epoch, *next(iter(test_ds.batches(epoch))))
         if epoch % args.log_freq == 0:
             logger["loss_test"].append(loss_test)
@@ -352,26 +388,29 @@ def main(argv=None):
         if epoch % args.log_freq == 0:
             logger["loss_train"].append(loss_train)
             logger["entropy_train"].append(-neg_ent)
-            jsonl.log({"epoch": epoch, "loss_train": loss_train,
-                       "loss_first_step": losses[0], "lr": glow_lr(state),
-                       "skipped_steps": skipped,
-                       "samples_per_sec": len(metrics) * args.batch_size
-                       / epoch_s, "epoch_seconds": epoch_s})
+            if rank0:
+                jsonl.log({"epoch": epoch, "loss_train": loss_train,
+                           "loss_first_step": losses[0],
+                           "lr": glow_lr(state), "skipped_steps": skipped,
+                           "samples_per_sec": len(metrics) * args.batch_size
+                           / epoch_s, "epoch_seconds": epoch_s})
         if epoch % args.ckpt_freq == 0:
             save_checkpoint(args.ckpt_dir, epoch, state,
                             meta={"epoch": epoch, "logger": logger})
             args.ckpt_epoch = epoch
-            save_args(args.run_dir, args)
+            if rank0:
+                save_args(args.run_dir, args)
         test(epoch)
 
     training_time = time.time() - tic
     print(f"Finished training {args.epochs} epochs with {args.ntrain} data "
           f"using {training_time / 60:.2f} mins")
-    save_stats(args.train_dir, logger, "loss_train", "loss_test",
-               "nrmse_test", "r2_test", "entropy_test", "entropy_train")
     args.training_time = training_time
     args.n_params, args.n_layers = n_params, n_layers
-    save_args(args.run_dir, args)
+    if rank0:
+        save_stats(args.train_dir, logger, "loss_train", "loss_test",
+                   "nrmse_test", "r2_test", "entropy_test", "entropy_train")
+        save_args(args.run_dir, args)
     return state, logger
 
 

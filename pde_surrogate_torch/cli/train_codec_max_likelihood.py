@@ -7,8 +7,8 @@ flags, defaults and run-dir naming, plus ``--device`` (default ``cuda``).
 The training split's labels come from the PCG solver, attached in place to
 an inputs-only file.  ``--dtype bf16``, ``--profile-epoch`` and, beyond the
 JAX driver's flags, ``--concat-free`` (run dir suffix ``_cf``) work as in
-the mixed-residual driver; ``--n-devices > 1`` raises
-``NotImplementedError`` (ROADMAP E3).
+the mixed-residual driver, and so does ``--n-devices N`` (data-parallel
+on N ranks).
 
 Run:  python -m pde_surrogate_torch.cli.train_codec_max_likelihood \
           --data grf_kle512 --ntrain 4096 --batch-size 32
@@ -18,8 +18,9 @@ from __future__ import annotations
 
 import argparse
 
+from ..parallel.launch import check_devices
 from ..utils.config import BaseParser, int_list
-from ._codec_common import reject_unported, run_codec_training, run_find_lr
+from ._codec_common import run_codec
 
 
 class Parser(BaseParser):
@@ -66,7 +67,8 @@ class Parser(BaseParser):
         self.add_argument("--test-batch-size", type=int, default=64)
         self.add_argument("--seed", type=int, default=1)
         self.add_argument("--n-devices", type=int, default=None,
-                          help="data-parallel devices; only one is ported")
+                          help="train data-parallel on this many devices "
+                               "(one rank each; parallel/launch.py)")
         self.add_argument("--find-lr", action="store_true", default=False,
                           help="run the LR-range test instead of training")
         self.add_argument("--no-scan-epochs", dest="scan_epochs",
@@ -78,7 +80,7 @@ class Parser(BaseParser):
 
     def parse(self, argv=None):
         args = self.parse_args(argv)
-        reject_unported(args)
+        check_devices(args.n_devices, args.device)
         hparams = (f"{args.data}_ntrain{args.ntrain}_run{args.run}_"
                    f"bs{args.batch_size}_lr{args.lr}_epochs{args.epochs}")
         if args.kle != 512:
@@ -99,10 +101,7 @@ class Parser(BaseParser):
 
 
 def main(argv=None):
-    args = Parser().parse(argv)
-    if args.find_lr:
-        return run_find_lr(args, loss_kind="mle")
-    return run_codec_training(args, loss_kind="mle")
+    return run_codec(Parser().parse(argv), loss_kind="mle")
 
 
 if __name__ == "__main__":

@@ -6,8 +6,9 @@ flags, defaults and run-dir naming, plus ``--device`` (default ``cuda``).
 warm-starts the weights; ``--dtype bf16`` runs the convolutions in bf16
 with f32 parameters; ``--concat-free`` drops the dense blocks' per-layer
 concats; ``--profile-epoch N`` writes a profiler trace of epoch N to
-``<run dir>/training/profile/trace.json``.  ``--n-devices > 1`` is not
-ported yet and raises ``NotImplementedError`` (ROADMAP E3).
+``<run dir>/training/profile/trace.json``.  ``--n-devices N`` trains
+data-parallel on N ranks, one device each: spawned by the CLI, or one rank
+per process under ``torchrun --nproc-per-node N`` (``parallel/launch.py``).
 
 Run:  python -m pde_surrogate_torch.cli.train_codec_mixed_residual \
           --data grf_kle512 --ntrain 4096 --batch-size 32
@@ -17,8 +18,9 @@ from __future__ import annotations
 
 import argparse
 
+from ..parallel.launch import check_devices
 from ..utils.config import BaseParser, int_list
-from ._codec_common import reject_unported, run_codec_training, run_find_lr
+from ._codec_common import run_codec
 
 
 class Parser(BaseParser):
@@ -97,7 +99,8 @@ class Parser(BaseParser):
         self.add_argument("--test-batch-size", type=int, default=64)
         self.add_argument("--seed", type=int, default=1)
         self.add_argument("--n-devices", type=int, default=None,
-                          help="data-parallel devices; only one is ported")
+                          help="train data-parallel on this many devices "
+                               "(one rank each; parallel/launch.py)")
         self.add_argument("--find-lr", action="store_true", default=False,
                           help="run the LR-range test instead of training "
                                "(utils/practices.py:45-83)")
@@ -118,7 +121,7 @@ class Parser(BaseParser):
 
     def parse(self, argv=None):
         args = self.parse_args(argv)
-        reject_unported(args)
+        check_devices(args.n_devices, args.device)
         hparams = (f"{args.data}_ntrain{args.ntrain}_run{args.run}_"
                    f"bs{args.batch_size}_lr{args.lr}_epochs{args.epochs}")
         if args.kle != 512:
@@ -153,10 +156,7 @@ class Parser(BaseParser):
 
 
 def main(argv=None):
-    args = Parser().parse(argv)
-    if args.find_lr:
-        return run_find_lr(args, loss_kind="mixed_residual")
-    return run_codec_training(args, loss_kind="mixed_residual")
+    return run_codec(Parser().parse(argv), loss_kind="mixed_residual")
 
 
 if __name__ == "__main__":

@@ -6,6 +6,11 @@ epoch is a gather driven by a permutation.  The permutation is a pure
 function of (seed, epoch): resuming at epoch e reproduces the exact stream
 without checkpointing dataloader state.  Its bits differ from the JAX
 package's (another generator); the semantics do not.
+
+Under a data mesh every rank holds the whole dataset, draws the same
+permutation and yields its contiguous ``batch_size / world`` rows of every
+global batch, the test set's too, as the JAX package's batch sharding
+places them.
 """
 
 from __future__ import annotations
@@ -27,10 +32,12 @@ class DeviceDataset:
       seed: base seed; epoch e draws from ``torch.Generator`` seeded by
         (seed, e).
       device: where the arrays live.
+      mesh: a ``parallel.mesh.Mesh``: yield this rank's shard of every
+        batch (``batch_size`` is the global batch).
     """
 
     def __init__(self, *arrays, batch_size: int, device: torch.device | str,
-                 seed: int = 0, shuffle: bool = True):
+                 seed: int = 0, shuffle: bool = True, mesh=None):
         lengths = {len(a) for a in arrays}
         if len(lengths) != 1:
             raise ValueError(f"array length mismatch: {lengths}")
@@ -39,6 +46,13 @@ class DeviceDataset:
         self.steps_per_epoch = self.n // self.batch_size
         if self.steps_per_epoch == 0:
             raise ValueError("batch_size larger than dataset")
+        self.shard = slice(None)
+        if mesh is not None:
+            if self.batch_size % mesh.world_size:
+                raise ValueError(f"batch_size {self.batch_size} not divisible "
+                                 f"by the mesh's {mesh.world_size} ranks")
+            rows = self.batch_size // mesh.world_size
+            self.shard = slice(mesh.rank * rows, (mesh.rank + 1) * rows)
         self.seed = int(seed)
         self.shuffle = shuffle
         self.device = torch.device(device)
@@ -58,8 +72,8 @@ class DeviceDataset:
                                   self.batch_size).to(self.device)
 
     def batches(self, epoch: int) -> Iterator[tuple]:
-        """Iterate (arrays...) batches for one epoch."""
-        idx = self.epoch_indices(epoch)
+        """Iterate (arrays...) batches (this rank's shard) for one epoch."""
+        idx = self.epoch_indices(epoch)[:, self.shard]
         for s in range(self.steps_per_epoch):
             yield tuple(a.index_select(0, idx[s]) for a in self.arrays)
 

@@ -33,12 +33,15 @@ from collections import OrderedDict
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-__all__ = ["DenseED", "Decoder", "BatchNorm2d", "module_size",
-           "upsample_nearest", "upsample_bilinear"]
+from ..parallel.mesh import all_reduce_sum
+
+__all__ = ["DenseED", "Decoder", "BatchNorm2d", "batch_moments",
+           "module_size", "upsample_nearest", "upsample_bilinear"]
 
 
 def module_size(model: nn.Module) -> tuple[int, int]:
@@ -66,15 +69,30 @@ class BatchNorm2d(nn.BatchNorm2d):
     A bf16 input is normalised with f32 statistics and parameters and comes
     out bf16.  ``fold_stats`` False (a rematerialised forward) normalises
     with the batch statistics and leaves the running buffers alone.
+
+    With a ``stats_group`` (set by ``parallel.mesh.replicate``) the batch is
+    the global one, sharded over the group's ranks, as flax's BatchNorm sees
+    it under SPMD: the moments are those of every rank's rows
+    (``batch_moments``), the normalisation is differentiated through the
+    reduction, and the running buffers fold the global biased variance.
     """
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
         self.fold_stats = True
+        self.stats_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.stats_group is not None:
+            mean, var = batch_moments(x, self.stats_group)
+            self.fold(mean.detach(), var.detach())
+            acc = torch.promote_types(x.dtype, torch.float32)
+            scale = torch.rsqrt(var + self.eps) * self.weight
+            y = ((x.to(acc) - mean[:, None, None]) * scale[:, None, None]
+                 + self.bias[:, None, None])
+            return y.to(x.dtype)
         m = x.numel() // x.shape[1]
         mean, var = self.running_mean.clone(), self.running_var.clone()
         y = F.batch_norm(x, mean, var, self.weight, self.bias, True,
@@ -127,7 +145,8 @@ def _conv(cin: int, cout: int, k: int, stride: int = 1, padding: int = 0):
     return Conv2d(cin, cout, k, stride=stride, padding=padding, bias=False)
 
 
-def _batch_moments(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def batch_moments(x: torch.Tensor, group=None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-channel (mean, biased var) over (N, H, W), reduced in f32.
 
     The variance is centred (``torch.var_mean``), as the port's
@@ -135,11 +154,29 @@ def _batch_moments(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     ``_batch_moments``) cancels where the mean is large against the spread:
     in its place the concat-free gradient of DenseED [6,8,6]/16/48 lies
     7.2e-4 rel-L2 from the concat path's, against 1.3e-6 centred
-    (tools/codec_bf16_probe.py)."""
+    (tools/codec_bf16_probe.py).
+
+    With a process ``group``, the moments of the rows of every rank: each
+    rank's (count, mean, centred M2) are gathered by one differentiable
+    all-reduce and combined by Chan's parallel formula, so the variance
+    stays centred."""
     var, mu = torch.var_mean(x.to(torch.promote_types(x.dtype,
                                                       torch.float32)),
                              dim=(0, 2, 3), unbiased=False)
-    return mu, var
+    if group is None:
+        return mu, var
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    count = x.numel() // x.shape[1]
+    row = torch.cat([mu.new_full((1,), float(count)), mu, var * count])
+    rows = all_reduce_sum(torch.stack(
+        [row if r == rank else torch.zeros_like(row) for r in range(world)]),
+        group)
+    counts, means, m2 = rows[:, :1], rows[:, 1:1 + mu.numel()], \
+        rows[:, 1 + mu.numel():]
+    total = counts.sum()
+    mean = (counts * means).sum(0) / total
+    m2 = m2.sum(0) + (counts * (means - mean) ** 2).sum(0)
+    return mean, m2 / total
 
 
 class DenseLayer(nn.Module):
@@ -231,6 +268,7 @@ class DenseBlock(nn.Module):
             raise ValueError("concat_free does not support bottleneck layers")
         self.concat_free = concat_free
         self.remat = remat
+        self.stats_group = None     # the groups' moments over a mesh
         for i in range(num_layers):
             self.add_module(f"denselayer{i + 1}", DenseLayer(
                 in_features + i * growth_rate, growth_rate, drop_rate,
@@ -248,12 +286,13 @@ class DenseBlock(nn.Module):
                 x = layer(x)
             return x
         groups = [x]
-        moments = [_batch_moments(x)] if self.training else None
+        moments = ([batch_moments(x, self.stats_group)] if self.training
+                   else None)
         for layer in self.children():
             g = layer.forward_groups(groups, moments)
             groups.append(g)
             if self.training:
-                moments.append(_batch_moments(g))
+                moments.append(batch_moments(g, self.stats_group))
         return torch.cat(groups, dim=1)
 
     def _remat_contexts(self):

@@ -1,0 +1,77 @@
+"""The conv solver's canonical linear recipe from several seeds, side by side.
+
+ROADMAP F1: the canonical run (kle1024 test field 8, 5x5 Sobel, 20 000
+Adam steps at lr 2e-3, 500 zoom L-BFGS epochs) missed the bar on u from
+one seed.  This runs the recipe through ``solve_conv_mixed_residual`` once
+per seed, all at once on one card (each in its own process and exp dir,
+on one shared data dir labelled first), and prints one JSON line: per
+seed the Adam warmup's final loss, the last epoch's loss, and u / σ₁ / σ₂
+rel-L2 at the last test epoch.  Each run's log goes to ``--out``.
+
+Run:  python3 -m pde_surrogate_torch.tools.f1_seeds --seeds 1 2 3 \
+          --out chiprun_out/f1
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+import tempfile
+
+RECIPE = ["--data", "grf", "--kle", "1024", "--idx", "8", "--epochs", "500",
+          "--linesearch", "zoom", "--adam-warmup", "20000", "--adam-lr",
+          "2e-3", "--sobel-size", "5", "--no-plot"]
+
+
+def parse_log(text: str) -> dict:
+    """The warmup's loss, the last epoch's loss and the last rel-L2."""
+    warm = re.findall(r"Adam warmup \(\d+ steps\): loss ([\d.eE+-]+)", text)
+    losses = re.findall(r"epoch \d+: loss ([\d.eE+-]+)", text)
+    rel = re.findall(r"relative l2 \[([^\]]+)\]", text)
+    return {"adam_loss": float(warm[-1]) if warm else None,
+            "final_loss": float(losses[-1]) if losses else None,
+            "rel_l2": ([float(v) for v in rel[-1].split()] if rel else None)}
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--seeds", type=int, nargs="+", default=[1, 2, 3])
+    p.add_argument("--out", default="chiprun_out/f1")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--extra", nargs=argparse.REMAINDER, default=[],
+                   help="further solver flags (a shorter recipe for a try)")
+    args = p.parse_args(argv)
+    os.makedirs(args.out, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="f1_")
+    data = os.path.join(work, "data")
+    from ..cli.solve_conv_mixed_residual import Parser, ensure_test_dataset
+    ensure_test_dataset(Parser().parse_args(
+        RECIPE + ["--device", args.device, "--data-dir", data, *args.extra]))
+    procs = {}
+    for s in args.seeds:
+        log = open(os.path.join(args.out, f"seed{s}.log"), "w")
+        cmd = [sys.executable, "-m",
+               "pde_surrogate_torch.cli.solve_conv_mixed_residual",
+               *RECIPE, "--seed", str(s), "--device", args.device,
+               "--data-dir", data, "--exp-dir", os.path.join(work, f"s{s}"),
+               *args.extra]
+        procs[s] = (subprocess.Popen(cmd, stdout=log,
+                                     stderr=subprocess.STDOUT), log)
+    result = {}
+    for s, (proc, log) in procs.items():
+        rc = proc.wait()
+        log.close()
+        with open(log.name) as f:
+            result[s] = {"rc": rc, **parse_log(f.read())}
+    shutil.rmtree(work, ignore_errors=True)
+    print(json.dumps({"f1_seeds": result}))
+    return 0 if all(r["rc"] == 0 for r in result.values()) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -13,6 +13,9 @@ The single-instance solvers keep weights only: ``save_weights`` writes
 ``{"model"}`` to the same file name, which ``restore_weights`` reads.
 
 Writes are atomic (tmp + rename), so a killed job never leaves a torn file.
+A data-parallel state (``state.mesh``) is written by rank 0 alone, and
+every rank waits until it is written; what is saved is the plain module's
+state dict, so it loads in one process.  On resume every rank reads.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ import os
 import re
 
 import torch
+
+from ..parallel.mesh import barrier, is_main
 
 __all__ = ["save_checkpoint", "save_weights", "restore_checkpoint",
            "restore_weights",
@@ -57,16 +62,20 @@ def _counters(state) -> dict[str, int]:
 def save_checkpoint(ckpt_dir: str, epoch: int, state,
                     meta: dict | None = None) -> str:
     """Write ``state`` (a ``CodecState`` or ``GlowState``) and the JSON-able
-    ``meta``."""
-    os.makedirs(ckpt_dir, exist_ok=True)
-    buf = io.BytesIO()
-    torch.save({"model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
-                **_counters(state)}, buf)
+    ``meta`` (on rank 0 of a data mesh; the ranks meet afterwards)."""
     path = checkpoint_file(ckpt_dir, epoch)
-    _atomic_write(path, buf.getvalue())
-    if meta is not None:
-        _atomic_write(_meta_file(ckpt_dir, epoch), json.dumps(meta, indent=2))
+    mesh = getattr(state, "mesh", None)
+    if is_main(mesh):
+        os.makedirs(ckpt_dir, exist_ok=True)
+        buf = io.BytesIO()
+        torch.save({"model": state.model.state_dict(),
+                    "optimizer": state.optimizer.state_dict(),
+                    **_counters(state)}, buf)
+        _atomic_write(path, buf.getvalue())
+        if meta is not None:
+            _atomic_write(_meta_file(ckpt_dir, epoch),
+                          json.dumps(meta, indent=2))
+    barrier(mesh)
     return path
 
 

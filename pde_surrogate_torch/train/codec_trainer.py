@@ -8,6 +8,13 @@ objectives) and the supervised MSE step
 the test step with rel-L2, SSE and the flux-pressure consistency.  The JAX
 package scans an epoch as one device program; here an epoch is a Python
 loop over these steps, which return device tensors and never synchronise.
+
+Under a data mesh (``state.mesh``) each rank steps on its shard of the
+global batch: the BatchNorm moments are the global batch's (the model was
+``parallel.mesh.replicate``-d), the gradients are averaged over the ranks
+before Adam (where XLA puts its ``psum``), and the returned losses are the
+global batch's.  Every loss term is a mean over equal shards, so the mean
+of the ranks' losses is the global loss.
 """
 
 from __future__ import annotations
@@ -18,22 +25,25 @@ from ..ops.darcy import (flux_pressure_consistency, fv_cg_anchors,
                          fv_cg_error_loss, fv_mixed_residual_loss,
                          mixed_residual_loss)
 from ..ops.filters import SobelFilter
+from ..parallel.mesh import all_mean, all_reduce_grads
 from ..utils.metrics import relative_l2, squared_error_sum
 from .schedules import one_cycle_schedule
 
 __all__ = ["CodecState", "create_state", "make_mixed_residual_step",
-           "make_mle_step", "make_eval_step", "current_lr"]
+           "make_mle_step", "make_eval_step", "current_lr", "global_metrics"]
 
 
 class CodecState:
-    """The model, its optimizer, the step -> lr schedule and the number of
-    updates taken so far."""
+    """The model, its optimizer, the step -> lr schedule, the number of
+    updates taken so far and the data mesh (None: one process)."""
 
-    def __init__(self, model, optimizer, schedule, step: int = 0):
+    def __init__(self, model, optimizer, schedule, step: int = 0,
+                 mesh=None):
         self.model = model
         self.optimizer = optimizer
         self.schedule = schedule
         self.step = step
+        self.mesh = mesh
 
 
 def _adam_l2(params, lr: float, weight_decay: float = 0.0):
@@ -45,15 +55,17 @@ def _adam_l2(params, lr: float, weight_decay: float = 0.0):
 
 def create_state(model, lr_max: float, total_steps: int,
                  div_factor: float = 2.0, pct_start: float = 0.3,
-                 weight_decay: float = 0.0, schedule=None) -> CodecState:
+                 weight_decay: float = 0.0, schedule=None,
+                 mesh=None) -> CodecState:
     """Adam + OneCycle around ``model`` (reference optimizer:
     train_codec_mixed_residual.py:151-154).  ``schedule`` overrides the
-    OneCycle step -> lr function (the --find-lr range test)."""
+    OneCycle step -> lr function (the --find-lr range test); ``mesh`` makes
+    the steps data-parallel (the caller replicates the model)."""
     if schedule is None:
         schedule = one_cycle_schedule(lr_max, total_steps, div_factor,
                                       pct_start)
     optimizer = _adam_l2(model.parameters(), schedule(0), weight_decay)
-    return CodecState(model, optimizer, schedule)
+    return CodecState(model, optimizer, schedule, mesh=mesh)
 
 
 def current_lr(state: CodecState) -> float:
@@ -104,15 +116,28 @@ def _physics_loss(physics: str, x, output, sobel, weight_bound,
 
 
 def _apply_update(state: CodecState, loss: torch.Tensor):
-    """Backward, then Adam at the scheduled lr of this update."""
+    """Backward, the gradients averaged over the mesh, then Adam at the
+    scheduled lr of this update."""
     opt = state.optimizer
     opt.zero_grad(set_to_none=True)
     loss.backward()
+    if state.mesh is not None:
+        all_reduce_grads(state.model.parameters(), state.mesh)
     lr = state.schedule(state.step)
     for group in opt.param_groups:
         group["lr"] = lr
     opt.step()
     state.step += 1
+
+
+def global_metrics(metrics: dict, mesh) -> dict:
+    """Scalar metrics detached, and averaged over the mesh's ranks in one
+    all-reduce."""
+    if mesh is None:
+        return {k: v.detach() for k, v in metrics.items()}
+    names = list(metrics)
+    vals = all_mean(torch.stack([metrics[k].detach() for k in names]), mesh)
+    return dict(zip(names, vals.unbind()))
 
 
 def make_mixed_residual_step(state: CodecState, sobel: SobelFilter,
@@ -134,9 +159,9 @@ def make_mixed_residual_step(state: CodecState, sobel: SobelFilter,
             physics, x, output, sobel, weight_bound, None, fvcg_weight,
             fvcg_flux_weight, fvcg_iters)
         _apply_update(state, loss)
-        return {"loss": loss.detach(), "loss_pde": pde.detach(),
-                "loss_dirichlet": diri.detach(),
-                "loss_neumann": neum.detach()}
+        return global_metrics({"loss": loss, "loss_pde": pde,
+                               "loss_dirichlet": diri, "loss_neumann": neum},
+                              state.mesh)
 
     return step
 
@@ -151,7 +176,7 @@ def make_mle_step(state: CodecState):
         model.train()
         loss = torch.mean((model(x) - y) ** 2)
         _apply_update(state, loss)
-        return {"loss": loss.detach()}
+        return global_metrics({"loss": loss}, state.mesh)
 
     return step
 

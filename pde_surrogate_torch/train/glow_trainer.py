@@ -17,6 +17,12 @@ the predictive entropy (bits per pixel), backprop through the whole flow.
   ActNorm data-init is sequential (Gauss-Seidel): one forward per ActNorm
   in density-execution order, each normalising its true input under the
   already initialised prefix.
+* Under a data mesh (``state.mesh``) each rank steps on its shard of the
+  global batch.  The noise is the global batch's, drawn on every rank from
+  the same generator and sliced (the JAX package's replicated key), the
+  BatchNorm moments are global, the gradients are averaged over the ranks
+  before the NaN guard reads them (so every rank skips the same steps),
+  and the returned metrics are the global batch's.
 """
 
 from __future__ import annotations
@@ -29,9 +35,10 @@ from ..models.flow import actnorm_init_from_input, actnorm_module_paths
 from ..ops.darcy import (conv_boundary_condition, conv_constitutive_constraint,
                          conv_continuity_constraint, fv_cg_anchors)
 from ..ops.filters import SobelFilter
+from ..parallel.mesh import all_reduce_grads, shard_batch
 from ..utils.config import make_generator
 from ..utils.metrics import relative_l2, squared_error_sum
-from .codec_trainer import _adam_l2
+from .codec_trainer import _adam_l2, global_metrics
 from .schedules import one_cycle_schedule
 
 __all__ = ["GlowState", "create_glow_state", "glow_lr",
@@ -48,15 +55,17 @@ class GlowState:
     counters: ``step`` (steps taken; seeds each step's noise), ``updates``
     (updates applied; optax's count, which drives the lr) and
     ``notfinite_count`` (consecutive non-finite gradients).  All three are
-    checkpointed."""
+    checkpointed.  ``mesh``: the data mesh (None: one process)."""
 
     COUNTERS = ("step", "updates", "notfinite_count")
 
-    def __init__(self, model, optimizer, schedule, seed: int = 0):
+    def __init__(self, model, optimizer, schedule, seed: int = 0,
+                 mesh=None):
         self.model = model
         self.optimizer = optimizer
         self.schedule = schedule
         self.seed = seed
+        self.mesh = mesh
         self.step = 0
         self.updates = 0
         self.notfinite_count = 0
@@ -64,13 +73,15 @@ class GlowState:
 
 def create_glow_state(model, lr_max: float, total_steps: int,
                       div_factor: float = 2.0, pct_start: float = 0.3,
-                      weight_decay: float = 0.0, seed: int = 0) -> GlowState:
+                      weight_decay: float = 0.0, seed: int = 0,
+                      mesh=None) -> GlowState:
     """Adam (coupled L2) + OneCycle around ``model`` (JAX
     glow_trainer.py:53-70, whose CLIs all keep the NaN guard on);
-    ``seed`` is the base of the per-step noise."""
+    ``seed`` is the base of the per-step noise; ``mesh`` makes the steps
+    data-parallel (the caller replicates the model)."""
     schedule = one_cycle_schedule(lr_max, total_steps, div_factor, pct_start)
     optimizer = _adam_l2(model.parameters(), schedule(0), weight_decay)
-    return GlowState(model, optimizer, schedule, seed)
+    return GlowState(model, optimizer, schedule, seed, mesh)
 
 
 def glow_lr(state: GlowState) -> float:
@@ -92,6 +103,8 @@ def _guarded_update(state: GlowState, loss: torch.Tensor) -> None:
     opt = state.optimizer
     opt.zero_grad(set_to_none=True)
     loss.backward()
+    if state.mesh is not None:
+        all_reduce_grads(state.model.parameters(), state.mesh)
     grads = [p.grad for group in opt.param_groups
              for p in group["params"] if p.grad is not None]
     finite = bool(_all_finite(grads))
@@ -155,7 +168,8 @@ def make_reverse_kl_step(state: GlowState, sobel: SobelFilter, beta: float,
     """Label-free reverse-KL step on a batch of K (B, 1, H, W) (JAX
     glow_trainer.py:89-170): ``generate`` in train mode with the step's
     noise, ``reverse_kl_objective``, then the guarded Adam update.
-    ``eps_list`` (optional, per call) replaces the drawn noise."""
+    ``eps_list`` (optional, per call) replaces the drawn noise; under a
+    mesh it is the global batch's, as the drawn noise is."""
     if physics not in ("sobel", "sobel_fvcg", "fvcg"):
         raise ValueError(f"unknown glow physics loss: {physics}")
     model = state.model
@@ -164,15 +178,32 @@ def make_reverse_kl_step(state: GlowState, sobel: SobelFilter, beta: float,
         model.train()
         gen = None if eps_list is not None else make_generator(
             x.device, state.seed, state.step)
+        if state.mesh is not None:
+            eps_list = _rank_noise(model, state.mesh, x, gen, eps_list)
         output, log_likelihood = model.generate(x, eps_list=eps_list,
                                                 generator=gen)
         metrics = reverse_kl_objective(
             x, output, log_likelihood, sobel, beta, weight_bound,
             n_out_pixels, physics, fvcg_weight, fvcg_flux_weight, fvcg_iters)
         _guarded_update(state, metrics["loss"])
-        return {k: v.detach() for k, v in metrics.items()}
+        return global_metrics(metrics, state.mesh)
 
     return step
+
+
+def _rank_noise(model, mesh, x, generator, eps_list=None, n_samples=None):
+    """This rank's rows of the global batch's noise: ``eps_list`` (the
+    global batch's), or drawn from ``generator`` for ``world`` times the
+    rows of ``x``, as one process draws it for the whole batch.  With
+    ``n_samples`` the entries are (n_samples, B, ...), sliced on B."""
+    if eps_list is None:
+        draw = model.create_noise(generator, n_samples or 1,
+                                  x.shape[0] * mesh.world_size)
+        eps_list = draw if n_samples else [e[0] for e in draw]
+    if n_samples:
+        return [shard_batch(e.transpose(0, 1), mesh).transpose(0, 1)
+                for e in eps_list]
+    return [shard_batch(e, mesh) for e in eps_list]
 
 
 def make_forward_kl_step(state: GlowState, n_out_pixels: int):
@@ -203,13 +234,24 @@ def make_glow_eval_step(state: GlowState, sobel: SobelFilter, beta: float,
     The entropy comes from the test batch's own log-likelihood.  Noise is
     drawn from ``generator``, or given as ``eps`` (the eps_list of
     ``generate``; with ``n_samples`` a pair (sample eps_list, generate
-    eps_list)).
+    eps_list)).  Under a mesh ``x`` and ``y`` are this rank's rows of the
+    test batch, the noise is the global batch's (drawn or given) sliced,
+    and every output is this rank's.
     """
     model = state.model
+    mesh = state.mesh
 
     @torch.no_grad()
     def step(x, y, generator: torch.Generator | None = None, eps=None):
         model.eval()
+        if mesh is not None:
+            if n_samples > 0:
+                s_eps, g_eps = eps if eps is not None else (None, None)
+                s_eps = _rank_noise(model, mesh, x, generator, s_eps,
+                                    n_samples)
+                eps = (s_eps, _rank_noise(model, mesh, x, generator, g_eps))
+            else:
+                eps = _rank_noise(model, mesh, x, generator, eps)
         if n_samples > 0:
             s_eps, g_eps = eps if eps is not None else (None, None)
             samples = model.sample(x, n_samples, generator=generator,

@@ -49,12 +49,15 @@ def make_generator(device, *entropy: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def select_device(name: str = "cuda") -> torch.device:
+def select_device(name: str = "cuda",
+                  local_rank: int | None = None) -> torch.device:
     """The device an entry point runs on, with the port's numerics set.
 
     f32 convolutions and matmuls stay full f32 (TF32 off), as the JAX
     package runs f32 convs and HIGHEST-precision Sobel products.  Asking for
     CUDA without a GPU raises: the entry points never fall back to the CPU.
+    ``local_rank`` (a data-parallel rank's index on its host) picks
+    ``cuda:local_rank`` and makes it the current device; the CPU ignores it.
     """
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -62,6 +65,12 @@ def select_device(name: str = "cuda") -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu "
                            "(or device='cpu') to run on the CPU")
+    if device.type == "cuda" and local_rank is not None:
+        if local_rank >= torch.cuda.device_count():
+            raise RuntimeError(f"local rank {local_rank}: only "
+                               f"{torch.cuda.device_count()} GPUs visible")
+        device = torch.device("cuda", local_rank)
+        torch.cuda.set_device(device)
     return device
 
 

@@ -4,8 +4,9 @@ make_dataset -> train_codec_mixed_residual -> predict_codec at a tiny size
 (imsize 16, blocks 1,2,1, growth 4), the fvcg objective, the supervised
 (MLE) driver with its train labels attached in place, --init-from,
 --find-lr, the label attach path of ensure_dataset, --dtype bf16,
---concat-free and --profile-epoch in both codec drivers, the option that
-is not ported yet, the figures (by file name against the JAX codec
+--concat-free and --profile-epoch in both codec drivers, --n-devices
+(data-parallel ranks spawned on the CPU, equal to one process; more ranks
+than GPUs refused on cuda), the figures (by file name against the JAX codec
 driver's; the solvers'), the run-dir names against the JAX parsers, the
 single-instance solvers (FC and conv decoder, linear and nonlinear, their
 test sets, their divergence guard), the cGlow chain (train with
@@ -146,12 +147,56 @@ def test_ensure_dataset_attaches_labels_and_guards(tmp_path):
 
 
 @pytest.mark.parametrize("main,flag", [
-    (t_train.main, ["--n-devices", "2"]), (t_mle.main, ["--n-devices", "2"])],
+    (t_train.main, ["--n-devices"]), (t_mle.main, ["--n-devices"])],
     ids=["n-devices", "mle-n-devices"])
 def test_unported_options_raise(tmp_path, main, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP E3"):
-        main(TINY + ["--exp-dir", str(tmp_path)] + flag)
+    """More data-parallel ranks than GPUs on cuda: refused before the run
+    dir exists (ranks never share a GPU, nothing falls back to the CPU)."""
+    n = str(torch.cuda.device_count() + 1)
+    with pytest.raises(RuntimeError, match="never share a GPU"):
+        main(TINY + ["--exp-dir", str(tmp_path), "--device", "cuda"]
+             + flag + [n])
     assert not (tmp_path / "codec").exists()
+
+
+DP = ["--ntrain", "16", "--ntest", "8", "--batch-size", "8",
+      "--test-batch-size", "8", "--epochs", "2"]
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.abs(b)))
+
+
+@pytest.mark.parametrize("main", [t_train.main, t_mle.main],
+                         ids=["mixed_residual", "mle"])
+def test_codec_data_parallel_cli(tmp_path, main):
+    """--n-devices 2 --device cpu (two gloo ranks spawned by the CLI, as
+    the JAX package's tests/test_cli_smoke.py sizes its DP run): the
+    losses and test metrics within 1e-4 relative of the one-process run,
+    its weights and BN buffers within 2e-5, the history in the run dir
+    written once; predict_codec serves the DP run's checkpoint in one
+    process."""
+    data = tmp_path / "d"
+    common = TINY + DP + ["--data-dir", str(data), "--ckpt-freq", "1"]
+    s1, l1 = main(common + ["--exp-dir", str(tmp_path / "one")])
+    s2, l2 = main(common + ["--exp-dir", str(tmp_path / "dp"),
+                            "--n-devices", "2"])
+    assert s2.step == s1.step == 4
+    for k in l1:
+        assert _rel(l2[k], l1[k]) < 1e-4, k
+    sd1 = s1.model.state_dict()
+    for k, v in s2.model.state_dict().items():
+        torch.testing.assert_close(v, sd1[k], rtol=0, atol=2e-5, msg=k)
+    (run,) = [p.parent for p in (tmp_path / "dp").rglob("args.txt")]
+    epochs = (run / "training" / "metrics.jsonl").read_text().splitlines()
+    assert [json.loads(e)["epoch"] for e in epochs] == [1, 2]
+    assert not list(run.glob(".dist_*"))
+    val = str(data / "16x16" / "kle512_lhs1000_val.hdf5")
+    pred, rel_l2, r2 = t_predict.main(["--device", "cpu", "--run-dir",
+                                       str(run), "--input", val])
+    assert pred.shape == (8, 3, 16, 16)
+    np.testing.assert_allclose(rel_l2, l2["nrmse_test"][-1], rtol=1e-4)
 
 
 @pytest.mark.parametrize("kind,flag,suffix", [
@@ -646,15 +691,16 @@ def test_cglow_run_dir_names_match_jax(tmp_path, argv):
 
 def test_cglow_weights_without_effect_exit(tmp_path):
     """Anchor weights under the pure fvcg objective would change nothing:
-    both parsers stop, and --n-devices > 1 names ROADMAP E3."""
+    both parsers stop; more --n-devices than GPUs on cuda is refused."""
     from pde_surrogate_tpu.cli import train_cglow_reverse_kl as j_glow
     argv = ["--physics", "fvcg", "--fvcg-weight", "50"]
     for parser, exp in ((j_glow.Parser(), "j"), (t_glow.Parser(), "t")):
         with pytest.raises(SystemExit):
             parser.parse(argv + ["--exp-dir", str(tmp_path / exp)])
-    with pytest.raises(NotImplementedError, match="E3"):
-        t_glow.Parser().parse(["--n-devices", "2", "--exp-dir",
-                               str(tmp_path / "t")])
+    with pytest.raises(RuntimeError, match="never share a GPU"):
+        t_glow.Parser().parse([
+            "--n-devices", str(torch.cuda.device_count() + 1), "--device",
+            "cuda", "--exp-dir", str(tmp_path / "t")])
     assert not (tmp_path / "t").exists()
 
 
@@ -739,6 +785,25 @@ def test_cglow_train_predict_post_chain(tmp_path):
         assert z["samples"].shape == (3, 3, 16, 16)
     mc = tmp_path / "d" / "16x16" / "kle512_lhs10000_monte_carlo.hdf5"
     assert th5.dataset_shapes(str(mc))["output"] == (8, 3, 16, 16)
+
+
+def test_cglow_data_parallel_cli(tmp_path):
+    """--n-devices 2 --device cpu with --data-init (ActNorm initialised on
+    the full first batch on both ranks): the losses and test metrics within
+    1e-4 relative of the one-process run; predict_cglow serves the DP
+    run's checkpoint in one process."""
+    (s1, l1), _ = _glow_run(tmp_path, "--epochs", "2", "--data-init",
+                            exp="one")
+    (s2, l2), run = _glow_run(tmp_path, "--epochs", "2", "--data-init",
+                              "--n-devices", "2", exp="dp")
+    assert s2.step == s2.updates == s1.step == 4
+    for k in l1:
+        assert _rel(l2[k], l1[k]) < 1e-4, k
+    mean, std, rel_l2, r2 = t_pglow.main([
+        "--device", "cpu", "--run-dir", str(run), "--input",
+        str(tmp_path / "d" / "16x16" / "kle512_lhs1000_val.hdf5"),
+        "--n-samples", "4"])
+    assert mean.shape == (8, 3, 16, 16) and np.isfinite(std).all()
 
 
 def test_cglow_resume_matches_uninterrupted(tmp_path):

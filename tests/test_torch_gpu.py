@@ -243,3 +243,62 @@ def test_codec_options_on_gpu_match_plain(cuda):
     for name, err, bound, _ in rows:
         assert err <= bound, f"{name}: {err} > {bound}"
     assert steps["bf16"]["conv_dtype"] == torch.bfloat16
+
+
+DP_KW = dict(in_channels=1, out_channels=3, imsize=32, blocks=[2, 3, 2],
+             growth_rate=8, init_features=16)
+
+
+def _dp_inputs():
+    from pde_surrogate_torch.models.codec import DenseED
+    torch.manual_seed(0)
+    return (DenseED(**DP_KW).state_dict(),
+            torch.from_numpy(sample_kle(8, 32, 32, rng=0))[:, None])
+
+
+def _assert_dp_equal(got, want):
+    """``tools/dist_check``'s rules on three float64 steps."""
+    from pde_surrogate_torch.tools import dist_check as dc
+    np.testing.assert_allclose(got["losses"].numpy(), want["losses"].numpy(),
+                               rtol=dc.CODEC_LOSS_RTOL)
+    for k, v in want["state"].items():
+        torch.testing.assert_close(got["state"][k], v, rtol=0,
+                                   atol=dc.CODEC_STATE_ATOL, msg=k)
+
+
+def test_dp_codec_steps_on_one_nccl_rank_match_plain(cuda, tmp_path):
+    """Three DenseED steps on a one-rank NCCL group (BatchNorm moments and
+    gradients all-reduced) against three plain steps on the card."""
+    from pde_surrogate_torch.parallel.launch import run
+    from pde_surrogate_torch.tools import dist_check as dc
+    sd, x = _dp_inputs()
+    got = run(dc.codec_run, 1, sd, x, DP_KW, 3, "cuda", torch.float64,
+              device="cuda", workdir=str(tmp_path))
+    _assert_dp_equal(got, dc.codec_run(None, sd, x, DP_KW, 3, "cuda",
+                                       torch.float64))
+
+
+def test_dp_codec_steps_on_two_gpus_match_plain(cuda, tmp_path):
+    """The same on two NCCL ranks, one GPU each (both replicas equal)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs: ranks never share one")
+    from pde_surrogate_torch.parallel.launch import spawn
+    from pde_surrogate_torch.tools import dist_check as dc
+    sd, x = _dp_inputs()
+    ranks = spawn(dc.codec_run, 2, sd, x, DP_KW, 3, "cuda", torch.float64,
+                  device="cuda", workdir=str(tmp_path))
+    _assert_dp_equal(ranks[0], dc.codec_run(None, sd, x, DP_KW, 3, "cuda",
+                                            torch.float64))
+    _assert_dp_equal(ranks[1], ranks[0])
+
+
+def test_spatial_solve_on_one_nccl_rank_matches_k1(cuda, tmp_path):
+    """The row-sharded solve on one NCCL rank against K1, by K1's own rule
+    against its plain twin (5e-5)."""
+    from pde_surrogate_torch.parallel.launch import run
+    from pde_surrogate_torch.tools import dist_check as dc
+    K = torch.from_numpy(sample_kle(4, 32, 64, rng=2))
+    (u,), = run(dc.spatial_runs, 1, [(K, [24 * 32])], device="cuda",
+                workdir=str(tmp_path))
+    torch.testing.assert_close(u, solve_darcy_cg(K.to(cuda), 24 * 32).cpu(),
+                               atol=5e-5, rtol=0)
