@@ -62,6 +62,15 @@
    the codec CLI with --n-devices 1 in a fresh data dir (K1 labels its val
    split on the rank) against the run without the flag (with two cards,
    --n-devices 2 too).
+9. ``[dpsp]``, the data x space training step at DenseED [6,8,6]/16/48's
+   widths, 64^2, batch 32, TF32 off: (a) the row-block arithmetic of
+   every conv kind, the upsampling before a conv and the Sobel stencils,
+   at 2 and 4 blocks in one process, forward and backward, against the
+   whole field's cuDNN / matmul result (1e-5 of its largest value); (b) a
+   1x1 mesh in a one-rank NCCL group (every conv on its row block, the
+   halos at both walls, the partial loss) against the plain step, three
+   steps in float64 and the first float32 loss; (c) the f32 step, plain
+   and mesh, timed in turns by CUDA events, with the peak memory of each.
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Any failed check raises
 and the script exits non-zero without that line; so does a machine without
@@ -1243,6 +1252,81 @@ def phase_dist(path: "MainPath") -> None:
         check(rel <= 1e-5, f"[dist] cli {label}: metrics differ")
 
 
+def _dpsp_checks(mesh) -> None:
+    """[dpsp] (b) and (c) on one rank of a one-rank NCCL group: the 1x1
+    data x space mesh's steps against the plain ones, three in float64
+    and the first in float32 (``tools/dist_check``'s rules), then the f32
+    steps timed in turns, with the peak memory of each."""
+    from pde_surrogate_torch.data.grf import sample_kle
+    from pde_surrogate_torch.models.codec import DenseED
+    from pde_surrogate_torch.parallel.mesh import dp_sp_mesh
+    from pde_surrogate_torch.tools import dist_check as dc
+    card = gpu_name_power()
+    dev = mesh.device
+    m2 = dp_sp_mesh(1, 1, dev)
+    torch.manual_seed(0)
+    sd = DenseED(**DIST_CODEC).state_dict()
+    x = torch.from_numpy(sample_kle(32, 64, 512, rng=3))[:, None]
+    m64 = dc.codec_run(m2, sd, x, DIST_CODEC, 3, dev, torch.float64)
+    p64 = dc.codec_run(None, sd, x, DIST_CODEC, 3, dev, torch.float64)
+    m32 = dc.codec_run(m2, sd, x, DIST_CODEC, 1, dev)
+    p32 = dc.codec_run(None, sd, x, DIST_CODEC, 1, dev)
+    loss_rel = _rel(m64["losses"], p64["losses"])
+    state_err = max(float((v - p64["state"][k]).abs().max())
+                    for k, v in m64["state"].items()
+                    if not k.endswith("num_batches_tracked"))
+    first_rel = _rel(m32["losses"], p32["losses"])
+    log(f"[dpsp] (b) 1x1 data x space mesh, DenseED [6,8,6]/16/48 64^2 "
+        f"batch 32, 3 steps in float64: loss {loss_rel:.3e} relative "
+        f"(bound {dc.CODEC_LOSS_RTOL:g}), parameters and BN buffers "
+        f"{state_err:.3e} (bound {dc.CODEC_STATE_ATOL:g}); first float32 "
+        f"loss {first_rel:.3e} relative (bound {dc.CODEC_LOSS_RTOL:g})")
+    check(loss_rel <= dc.CODEC_LOSS_RTOL and first_rel <= dc.CODEC_LOSS_RTOL
+          and state_err <= dc.CODEC_STATE_ATOL,
+          "[dpsp] (b): the mesh steps differ from the plain steps")
+    steps, peaks = {}, {}
+    for name, m in (("plain", None), ("mesh", m2)):
+        step, _ = dc.codec_step(m, sd, x, DIST_CODEC, dev)
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**20
+        steps[name] = step
+    ms_p, ms_m = _turns(steps["plain"], steps["mesh"], reps=10, warmup=3)
+    log(f"[dpsp] (c) step f32: plain {ms_p:.3f} ms, 1x1 mesh {ms_m:.3f} ms "
+        f"({ms_m / ms_p:.2f}x); peak memory of a step: plain "
+        f"{peaks['plain']:.1f} MiB, mesh {peaks['mesh']:.1f} MiB; {card}")
+    del steps
+
+
+def phase_dpsp(path: "MainPath") -> None:
+    """[dpsp]: (a) the row-block arithmetic on the card, then (b) and (c)
+    in a one-rank NCCL group (``_dpsp_checks``)."""
+    from pde_surrogate_torch.parallel.launch import run
+    from pde_surrogate_torch.tools import dist_check as dc
+    worst = 0.0
+    for n_blocks in (2, 4):
+        errs = dc.row_block_errors(dc.row_block_cases(full=True), n_blocks,
+                                   "cuda", torch.float32, batch=32)
+        for name, e in errs.items():
+            grad_w = "-" if e["grad_w"] is None else f"{e['grad_w']:.3e}"
+            f64 = [max(v for v in e[k].values() if v is not None)
+                   for k in ("blocks_vs_f64", "whole_vs_f64")]
+            log(f"[dpsp] (a) {n_blocks} blocks, {name}: halo {e['halo']}, "
+                f"output {e['out']:.3e}, grad x {e['grad_x']:.3e}, grad w "
+                f"{grad_w} of max|y|; from float64: blocks {f64[0]:.3e}, "
+                f"whole field {f64[1]:.3e}")
+            worst = max([worst, e["out"], e["grad_x"], e["grad_w"] or 0.0])
+    log(f"[dpsp] (a) worst block-arithmetic error {worst:.3e} of max|y| "
+        f"(bound {dc.ROW_BLOCK_RTOL_F32:g}); {gpu_name_power()}")
+    check(worst <= dc.ROW_BLOCK_RTOL_F32,
+          "[dpsp] (a): the row blocks differ from the whole field")
+    torch.cuda.empty_cache()
+    run(_dpsp_checks, 1, device="cuda", workdir=path.tmp)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1269,6 +1353,7 @@ def main() -> int:
         phase_glow_step_times()
         phase_step_profile()
         phase_dist(path)
+        phase_dpsp(path)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches = sum(path.launches.values())

@@ -10,7 +10,10 @@ epoch.  ``--nonlinear`` switches to the polynomial constitutive law, with
 the finite-volume Newton solver (``solvers/fd_darcy.solve_nonlinear_darcy``,
 cached as ``output_fv_newton.npy`` in the run dir) as the reference
 solution.  The same flags, defaults, run-dir names and ``epoch{N}.npy``
-predictions as the JAX package, plus ``--device`` (default ``cuda``).
+predictions as the JAX package, plus ``--device`` (default ``cuda``) and
+``--init-weights``: a .npz of the Decoder's state dict and its ``latent``
+in place of the seed's draw (``tools/f1_jax_init.py`` writes the JAX
+package's, which torch's initialisation does not reproduce).
 
 The loss and the predictions run the Decoder with train-mode BatchNorm
 (batch statistics), as the reference does; its running statistics are
@@ -172,6 +175,9 @@ class Parser(BaseParser):
         self.add_argument("--adam-lr", type=float, default=2e-3)
         self.add_argument("--sobel-size", type=int, default=3, choices=[3, 5],
                           help="derivative stencil of the physics loss")
+        self.add_argument("--init-weights", type=str, default=None,
+                          help="a .npz of the Decoder's initial state dict "
+                               "and latent (tools/f1_jax_init.py)")
         self.add_device_arg()
 
 
@@ -220,6 +226,12 @@ def main(argv=None):
     latent = rng.standard_normal((1, sz, sz, args.nz)).astype(np.float32) * 0.5
     latent = torch.from_numpy(np.ascontiguousarray(
         np.moveaxis(latent, -1, 1))).to(device)
+    if args.init_weights:
+        with np.load(args.init_weights) as init:
+            model.load_state_dict({k: torch.from_numpy(init[k])
+                                   for k in init.files if k != "latent"})
+            latent = torch.from_numpy(init["latent"]).to(device)
+        print(f"initial weights and latent: {args.init_weights}")
     sobel = SobelFilter(args.imsize, correct=True,
                         filter_size=args.sobel_size)
     flat = FlatParams(model)

@@ -24,6 +24,11 @@ so that reference ``.pth`` state dicts load by name.
   (activation checkpointing per dense block; the running statistics fold
   once per step) and ``bottleneck`` dense layers (BN-ReLU-1x1 conv to
   ``bn_size * growth``, then BN-ReLU-3x3, where the input is wider).
+* On a row block (``parallel.mesh.replicate`` under a data x space mesh
+  sets every ``Conv2d.rows``): each conv exchanges its halo rows with the
+  neighbouring ranks and runs without H-padding, and an upsampling
+  followed by a conv exchanges one low-resolution row a side
+  (``parallel/halo.py``).  Without it every path is as before.
 """
 
 from __future__ import annotations
@@ -38,6 +43,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.halo import (RowShard, block_operator, conv_halo, conv_rows,
+                             exchange_rows, upsample_conv_rows,
+                             upsample_matrix)
 from ..parallel.mesh import all_reduce_sum
 
 __all__ = ["DenseED", "Decoder", "BatchNorm2d", "batch_moments",
@@ -133,12 +141,50 @@ def upsample_bilinear(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
 _UPSAMPLE = {"nearest": upsample_nearest, "bilinear": upsample_bilinear}
 
 
+def _conv2d(x, weight, stride: int, padding: int, rows: RowShard | None):
+    """``F.conv2d`` without bias, with symmetric padding, on the whole
+    field or, with ``rows``, on this rank's row block (halo rows
+    exchanged; a 1x1 conv reads no other rows)."""
+    if rows is None or weight.shape[-2] == 1:
+        return F.conv2d(x, weight, None, stride, padding)
+    a, b = conv_halo(weight.shape[-2], stride, padding)
+    return conv_rows(x, *exchange_rows(x, a, b, rows), weight, stride,
+                     padding)
+
+
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` that computes in its input's dtype: f32 weights are cast
-    to bf16 for a bf16 input (flax's ``nn.Conv(dtype=bfloat16)``)."""
+    """``nn.Conv2d`` that computes in its input's dtype: f32 weights are
+    cast to bf16 for a bf16 input (flax's ``nn.Conv(dtype=bfloat16)``).
+    With ``rows`` set its input is a row block (``parallel/halo.py``);
+    ``parallel.mesh.replicate`` sets it only on a conv without bias, of
+    one group, with a square stride and padding, as the DenseED's."""
+
+    rows: RowShard | None = None
 
     def forward(self, x):
-        return self._conv_forward(x, self.weight.to(x.dtype), self.bias)
+        w = self.weight.to(x.dtype)
+        if self.rows is None:
+            return self._conv_forward(x, w, self.bias)
+        return _conv2d(x, w, self.stride[0], self.padding[0], self.rows)
+
+    def upsampled(self, x, mode: str):
+        """This conv of ``x`` upsampled x2 (``mode``); on a row block one
+        low-resolution halo row is exchanged a side and upsampled into the
+        rows the conv reads, with the block operators kept per input."""
+        if self.rows is None:
+            return self(_UPSAMPLE[mode](x))
+        p = self.padding[0]
+        key = (mode, x.shape[-2], self.rows.index, self.rows.size, x.device,
+               x.dtype)
+        cache = self.__dict__.setdefault("_row_ops", {})
+        if key not in cache:
+            op, a, b = block_operator(
+                upsample_matrix(x.shape[-2] * self.rows.size, mode),
+                self.rows.index, self.rows.size, extra=p)
+            cache[key] = (torch.from_numpy(op).to(x.device, x.dtype), a, b)
+        op, a, b = cache[key]
+        return upsample_conv_rows(x, *exchange_rows(x, a, b, self.rows), op,
+                                  self.weight.to(x.dtype), mode)
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1, padding: int = 0):
@@ -238,7 +284,7 @@ class DenseLayer(nn.Module):
                  * mul[start:end, None, None] + norm.bias[start:end, None, None])
             y = F.relu(y.to(g.dtype)).to(acc)
             k = weight[:, start:end].to(g.dtype).to(acc)
-            o = F.conv2d(y, k, padding=1)
+            o = _conv2d(y, k, 1, 1, self.conv1.rows)
             out = o if out is None else out + o
             start = end
         out = out.to(groups[0].dtype)
@@ -328,7 +374,7 @@ class Transition(nn.Module):
         self.down = down
         self.bottleneck = bottleneck
         self.drop_rate = drop_rate
-        self.upsample = _UPSAMPLE[upsample]
+        self.upsample = upsample
         self.norm1 = BatchNorm2d(in_features)
         if not bottleneck:
             self.conv1 = _conv(in_features, out_features, 3, stride=2,
@@ -346,9 +392,8 @@ class Transition(nn.Module):
         x = self.conv1(F.relu(self.norm1(x)))
         if self.bottleneck:
             x = F.relu(self.norm2(x))
-            if not self.down:
-                x = self.upsample(x)
-            x = self.conv2(x)
+            x = self.conv2(x) if self.down else self.conv2.upsampled(
+                x, self.upsample)
         if self.drop_rate > 0:
             x = F.dropout(x, self.drop_rate, self.training)
         return x
@@ -362,7 +407,7 @@ class LastDecoding(nn.Module):
                  drop_rate: float = 0.0, upsample: str = "nearest"):
         super().__init__()
         self.drop_rate = drop_rate
-        self.upsample = _UPSAMPLE[upsample]
+        self.upsample = upsample
         self.norm1 = BatchNorm2d(in_features)
         self.conv1 = _conv(in_features, in_features // 2, 3, padding=1)
         self.norm2 = BatchNorm2d(in_features // 2)
@@ -374,8 +419,7 @@ class LastDecoding(nn.Module):
         x = self.conv1(F.relu(self.norm1(x)))
         if self.drop_rate > 0:
             x = F.dropout(x, self.drop_rate, self.training)
-        x = self.upsample(F.relu(self.norm2(x)))
-        x = self.conv2(x)
+        x = self.conv2.upsampled(F.relu(self.norm2(x)), self.upsample)
         return self.conv3(F.relu(self.norm3(x)))
 
 

@@ -21,6 +21,13 @@ exponential, reference models/darcy.py:179-208).  Three families:
   ``vmap(jacfwd)``, and the parameter gradient flows through them.  The
   network is an ``nn.Module`` or a ``(module, params)`` pair evaluated with
   ``torch.func.functional_call``.
+
+The conv losses also run on a row block (a ``SobelFilter`` ``on_rows``,
+the data x space training step): there ``output`` carries the Sobel's
+``halo()`` rows above and below the block (``mixed_residual_loss``
+exchanges them), ``input`` is the block itself, and every mean becomes
+this rank's partial sum over the global count, so that the sum over the
+space ranks is the loss of the whole fields.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from ..solvers.fd_darcy import (_apply_operator, _dirichlet_lift,
                                 _face_conductivities, _face_fluxes,
                                 _face_kx_ky, _faces_to_nodes, _interior_mask,
                                 _laplacian)
+from ..parallel.halo import RowShard, exchange_rows, with_halo
 from .filters import SobelFilter
 
 __all__ = ["conv_constitutive_constraint",
@@ -48,6 +56,23 @@ __all__ = ["conv_constitutive_constraint",
            "neumann_boundary", "neumann_boundary_mixed"]
 
 
+def _own_rows(t: torch.Tensor, sobel: SobelFilter) -> torch.Tensor:
+    """``t``, or on a row block its own rows, without the Sobel's halo."""
+    if sobel.rows is None:
+        return t
+    a, b = sobel.halo()
+    return t[..., a:t.shape[-2] - b, :]
+
+
+def _mean(t: torch.Tensor, rows: RowShard | None) -> torch.Tensor:
+    """The mean of ``t`` over the whole fields; on a row block (every
+    block holds as many elements) this block's sum over the global
+    count."""
+    if rows is None:
+        return torch.mean(t)
+    return torch.sum(t) / (t.numel() * rows.size)
+
+
 def conv_constitutive_constraint(input: torch.Tensor, output: torch.Tensor,
                                  sobel: SobelFilter) -> torch.Tensor:
     """mean((sigma_hat - (-K grad u))^2) over both flux components
@@ -56,8 +81,9 @@ def conv_constitutive_constraint(input: torch.Tensor, output: torch.Tensor,
     u = output[:, 0:1]
     est_sigma1 = -input * sobel.grad_h(u)
     est_sigma2 = -input * sobel.grad_v(u)
-    return torch.mean((output[:, 1:2] - est_sigma1) ** 2
-                      + (output[:, 2:3] - est_sigma2) ** 2)
+    own = _own_rows(output, sobel)
+    return _mean((own[:, 1:2] - est_sigma1) ** 2
+                 + (own[:, 2:3] - est_sigma2) ** 2, sobel.rows)
 
 
 def conv_constitutive_constraint_nonlinear(input: torch.Tensor,
@@ -69,10 +95,11 @@ def conv_constitutive_constraint_nonlinear(input: torch.Tensor,
     u = output[:, 0:1]
     k_u_h = -input * sobel.grad_h(u)
     k_u_v = -input * sobel.grad_v(u)
-    sigma = output[:, 1:3]
+    sigma = _own_rows(output, sobel)[:, 1:3]
     rhs = (sigma + beta1 * torch.sqrt(input) * sigma ** 2
            + beta2 * input * sigma ** 3)
-    return torch.mean((k_u_h - rhs[:, 0:1]) ** 2 + (k_u_v - rhs[:, 1:2]) ** 2)
+    return _mean((k_u_h - rhs[:, 0:1]) ** 2 + (k_u_v - rhs[:, 1:2]) ** 2,
+                 sobel.rows)
 
 
 def conv_constitutive_constraint_nonlinear_exp(input: torch.Tensor,
@@ -82,9 +109,10 @@ def conv_constitutive_constraint_nonlinear_exp(input: torch.Tensor,
     """Residual of the exponential law sigma = -exp(K u) grad u
     (models/darcy.py:193-208)."""
     u = output[:, 0:1]
-    coef = torch.exp(input * u)
-    return torch.mean((output[:, 1:2] + coef * sobel.grad_h(u)) ** 2
-                      + (output[:, 2:3] + coef * sobel.grad_v(u)) ** 2)
+    own = _own_rows(output, sobel)
+    coef = torch.exp(input * own[:, 0:1])
+    return _mean((own[:, 1:2] + coef * sobel.grad_h(u)) ** 2
+                 + (own[:, 2:3] + coef * sobel.grad_v(u)) ** 2, sobel.rows)
 
 
 def energy_functional_exp(input: torch.Tensor, output: torch.Tensor,
@@ -94,42 +122,69 @@ def energy_functional_exp(input: torch.Tensor, output: torch.Tensor,
     (B, 1, H, W)."""
     grad_h = sobel.grad_h(output)
     grad_v = sobel.grad_v(output)
-    return torch.mean(0.5 * torch.exp(input * output)
-                      * (grad_h ** 2 + grad_v ** 2))
+    return _mean(0.5 * torch.exp(input * _own_rows(output, sobel))
+                 * (grad_h ** 2 + grad_v ** 2), sobel.rows)
 
 
 def conv_continuity_constraint(output: torch.Tensor, sobel: SobelFilter,
                                use_tb: bool = True) -> torch.Tensor:
     """mean((d sigma1/dx + d sigma2/dy)^2) (models/darcy.py:210-224);
-    ``use_tb=False`` leaves the top and bottom rows out of the mean."""
+    ``use_tb=False`` leaves the top and bottom rows (of the whole fields)
+    out of the mean."""
     div = (sobel.grad_h(output[:, 1:2]) + sobel.grad_v(output[:, 2:3])) ** 2
+    rows = sobel.rows
     if use_tb:
-        return torch.mean(div)
-    return torch.mean(div[:, :, 1:-1, :])
+        return _mean(div, rows)
+    if rows is None:
+        return torch.mean(div[:, :, 1:-1, :])
+    h = div.shape[-2]
+    lo = 1 if rows.index == 0 else 0
+    hi = h - 1 if rows.index == rows.size - 1 else h
+    count = div[:, :, :1].numel() * (rows.size * h - 2)
+    return torch.sum(div[:, :, lo:hi, :]) / count
 
 
-def conv_boundary_condition(output: torch.Tensor):
+def conv_boundary_condition(output: torch.Tensor,
+                            rows: RowShard | None = None):
     """(dirichlet, neumann) boundary MSEs (models/darcy.py:226-233):
     u = 1 on the left column, u = 0 on the right, sigma2 = 0 on the top and
-    bottom rows."""
+    bottom rows.  On a row block (``rows``; ``output`` without a halo) the
+    Dirichlet columns run through every block and the top and bottom rows
+    lie in the edge blocks only."""
     left = output[:, 0, :, 0]
     right = output[:, 0, :, -1]
-    top_down_flux = output[:, 2, [0, -1], :]
-    loss_dirichlet = torch.mean((left - 1.0) ** 2) + torch.mean(right ** 2)
-    loss_neumann = torch.mean(top_down_flux ** 2)
-    return loss_dirichlet, loss_neumann
+    loss_dirichlet = _mean((left - 1.0) ** 2, rows) + _mean(right ** 2, rows)
+    if rows is None:
+        return loss_dirichlet, torch.mean(output[:, 2, [0, -1], :] ** 2)
+    h = output.shape[-2]
+    walls = ([0] if rows.index == 0 else []) + (
+        [h - 1] if rows.index == rows.size - 1 else [])
+    top_down_flux = output[:, 2, torch.tensor(walls, dtype=torch.long,
+                                              device=output.device), :]
+    count = output[:, 2, :2, :].numel()
+    return loss_dirichlet, torch.sum(top_down_flux ** 2) / count
 
 
 def mixed_residual_loss(input: torch.Tensor, output: torch.Tensor,
                         sobel: SobelFilter, weight_bound: float = 10.0,
                         nonlinear: str | None = None, beta1: float = 1.0,
-                        beta2: float = 1.0):
+                        beta2: float = 1.0, halo=None):
     """constitutive + continuity + weight_bound * boundary; the law is
     linear (``nonlinear=None``), polynomial (``"poly"``, with beta1 and
     beta2) or exponential (``"exp"``).
 
+    On a row block (``sobel.rows``) ``input`` and ``output`` are the
+    block's rows, ``halo`` the ``(above, below)`` rows of ``output`` that
+    the Sobel reads (exchanged with the neighbouring ranks when None), and
+    the terms are this rank's partial sums.
+
     Returns ``(loss, (pde, dirichlet, neumann))``.
     """
+    own = output
+    if sobel.rows is not None:
+        if halo is None:
+            halo = exchange_rows(output, *sobel.halo(), sobel.rows)
+        output = with_halo(output, *halo)
     if nonlinear is None:
         constitutive = conv_constitutive_constraint(input, output, sobel)
     elif nonlinear == "poly":
@@ -141,7 +196,7 @@ def mixed_residual_loss(input: torch.Tensor, output: torch.Tensor,
     else:
         raise ValueError(f"unknown nonlinear law: {nonlinear}")
     continuity = conv_continuity_constraint(output, sobel)
-    dirichlet, neumann = conv_boundary_condition(output)
+    dirichlet, neumann = conv_boundary_condition(own, sobel.rows)
     pde = constitutive + continuity
     loss = pde + weight_bound * (dirichlet + neumann)
     return loss, (pde, dirichlet, neumann)

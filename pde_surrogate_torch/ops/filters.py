@@ -14,6 +14,12 @@ Here they run as two ``torch.matmul`` calls in f32 (the second contracts the
 rank axis with the columns, as the JAX einsum does).  Images are NCHW, or
 any (..., H, W).
 
+On a row block (``SobelFilter.on_rows``) the left operators, the only ones
+that act on H, are cut to the block's rows and to the columns of the block
+and its halo, with the replicate padding and the boundary modifier already
+in them; the halo is derived from where the operators are nonzero
+(``parallel.halo.block_operator``).
+
 The Gaussian smoother and the Farid-Simoncelli ("Fourier") derivative
 filters (reference utils/image_gradient.py:95-293) are exploratory in the
 reference (no driver uses them); they are ported for parity and run the
@@ -26,6 +32,8 @@ import functools
 
 import numpy as np
 import torch
+
+from ..parallel.halo import RowShard, block_operator
 
 __all__ = ["SobelFilter", "FourierFilter", "GaussianFilter",
            "gaussian_filter1d_weights", "stencil_matrix"]
@@ -91,6 +99,18 @@ def _sobel_operators(imsize: int, filter_size: int, correct: bool):
     return tuple(np.stack(x).astype(np.float32) for x in (lh, rh, lv, rv))
 
 
+@functools.lru_cache(maxsize=32)
+def _sobel_row_blocks(imsize: int, filter_size: int, correct: bool,
+                      index: int, size: int):
+    """(Lh, Lv, a, b): the left operators' block ``index`` of ``size``
+    over one halo window, ``a`` rows above and ``b`` below, the largest
+    that either operator needs on any block."""
+    lh, _, lv, _ = _sobel_operators(imsize, filter_size, correct)
+    block, a, b = block_operator(np.concatenate([lh, lv]), index, size)
+    block = block.astype(np.float32)
+    return block[:len(lh)], block[len(lh):], a, b
+
+
 def _apply_lr(image: torch.Tensor, left: torch.Tensor,
               right_cat: torch.Tensor) -> torch.Tensor:
     """sum_r L[r] @ image @ R[r] for image (..., H, W).
@@ -110,6 +130,11 @@ class SobelFilter:
     by the image size, i.e. derivatives on the unit square.  Operators are
     built once per (filter size, device, dtype) and kept on that device;
     a float64 image gets the float32 coefficients in float64.
+
+    With ``rows`` (``on_rows``) the images are this rank's row block of
+    ``imsize / rows.size`` rows, padded with ``halo()`` rows above and
+    below (``parallel.halo.with_halo``), and the results are the block's
+    own rows.
     """
 
     def __init__(self, imsize: int, correct: bool = True,
@@ -117,7 +142,20 @@ class SobelFilter:
         self.imsize = int(imsize)
         self.correct = bool(correct)
         self.filter_size = int(filter_size)
+        self.rows: RowShard | None = None
         self._cache: dict = {}
+
+    def on_rows(self, rows: RowShard) -> "SobelFilter":
+        """This filter on the row blocks of ``rows``."""
+        f = SobelFilter(self.imsize, self.correct, self.filter_size)
+        f.rows = rows
+        return f
+
+    def halo(self) -> tuple[int, int]:
+        """The rows above and below a block that the row-block operators
+        read."""
+        return _sobel_row_blocks(self.imsize, self.filter_size, self.correct,
+                                 self.rows.index, self.rows.size)[2:]
 
     def _ops(self, filter_size: int, image: torch.Tensor):
         if filter_size not in _SOBEL_COMPONENTS:
@@ -127,6 +165,10 @@ class SobelFilter:
         if ops is None:
             lh, rh, lv, rv = _sobel_operators(self.imsize, filter_size,
                                               self.correct)
+            if self.rows is not None:
+                lh, lv, _, _ = _sobel_row_blocks(
+                    self.imsize, filter_size, self.correct, self.rows.index,
+                    self.rows.size)
             t = lambda a: torch.from_numpy(a).to(image.device,  # noqa: E731
                                                  image.dtype)
             ops = (t(lh), t(rh.reshape(-1, rh.shape[-1])),

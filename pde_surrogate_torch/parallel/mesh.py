@@ -10,8 +10,13 @@ trainers average the gradients explicitly (``all_reduce_grads``); and the
 port's ``BatchNorm2d`` reduces its batch moments over the mesh once
 ``replicate`` has handed it the group.
 
-The 2-D data x space mesh of the JAX package (a spatially sharded training
-step) is not ported: ``dp_sp_mesh`` and ``batch_space_sharding`` raise.
+The 2-D ``('data', 'space')`` mesh (``dp_sp_mesh``) also splits each field's
+rows H over the space axis (``batch_space_sharding``).  Where XLA's SPMD
+partitioner inserts the conv halos, ``replicate`` hands every conv and
+upsampling of the DenseED this rank's ``RowShard``, and the convs exchange
+their halo rows point to point (``parallel/halo.py``); the BatchNorm
+moments run over the whole data x space group; the loss is this rank's
+partial sum (``ops/darcy.py``).
 """
 
 from __future__ import annotations
@@ -22,10 +27,12 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
+from .halo import RowShard
+
 __all__ = ["Mesh", "data_mesh", "shard_batch", "replicate",
            "all_reduce_grads", "all_reduce_sum", "all_mean", "all_gather",
-           "rank0_first", "barrier", "is_main", "dp_sp_mesh",
-           "batch_space_sharding"]
+           "rank0_first", "barrier", "is_main", "DataSpaceMesh",
+           "dp_sp_mesh", "batch_space_sharding", "row_shard"]
 
 
 @dataclass(frozen=True)
@@ -37,6 +44,29 @@ class Mesh:
     rank: int
     world_size: int
     device: torch.device
+
+    @property
+    def n_data(self) -> int:
+        """The ranks that hold different samples: all of a 1-D mesh."""
+        return self.world_size
+
+
+@dataclass(frozen=True)
+class DataSpaceMesh(Mesh):
+    """A 2-D ``(data, space)`` mesh: ``group`` is the whole group (rank
+    ``rank`` of ``world_size``), ``data_group`` the ranks that hold this
+    rank's rows of other samples, ``space_group`` the ranks that hold the
+    other rows of this rank's samples; this rank sits at ``coords``
+    ``(data index, space index)`` of ``shape`` ``(n_data, n_space)``."""
+
+    data_group: object
+    space_group: object
+    coords: tuple[int, int]
+    shape: tuple[int, int]
+
+    @property
+    def n_data(self) -> int:
+        return self.shape[0]
 
 
 def _mesh(n_devices: int | None, device, axis: str) -> Mesh:
@@ -59,17 +89,56 @@ def data_mesh(n_devices: int | None = None, device="cuda") -> Mesh:
     return _mesh(n_devices, device, "data")
 
 
-def dp_sp_mesh(n_data: int, n_space: int, *args, **kwargs):
-    """The JAX package's 2-D (data x space) training mesh: not ported."""
-    raise NotImplementedError("not ported yet: the data x space mesh "
-                              "(a spatially sharded training step, "
-                              "ROADMAP E3c)")
+def dp_sp_mesh(n_data: int, n_space: int, device="cuda") -> DataSpaceMesh:
+    """The ``('data', 'space')`` mesh of ``n_data x n_space`` ranks, the
+    whole process group; this rank drives ``device``.  Rank r sits at
+    ``(r // n_space, r % n_space)``."""
+    if not dist.is_initialized():
+        raise RuntimeError("a mesh needs an initialised process group "
+                           "(parallel.launch starts one per rank)")
+    world = dist.get_world_size()
+    if n_data * n_space != world:
+        raise ValueError(f"a {n_data}x{n_space} mesh in a process group of "
+                         f"{world} ranks")
+    device = torch.device(device)
+    from torch.distributed.device_mesh import init_device_mesh
+    dm = init_device_mesh(device.type, (n_data, n_space),
+                          mesh_dim_names=("data", "space"))
+    d, s = dm.get_coordinate()
+    return DataSpaceMesh(dist.group.WORLD, dist.get_rank(), world, device,
+                         dm.get_group("data"), dm.get_group("space"),
+                         (d, s), (n_data, n_space))
 
 
-def batch_space_sharding(*args, **kwargs):
-    """Batch on data and height on space: not ported (ROADMAP E3c)."""
-    raise NotImplementedError("not ported yet: batch x space sharding "
-                              "(ROADMAP E3c)")
+def row_shard(mesh: Mesh | None) -> RowShard | None:
+    """This rank's block of the rows under a 2-D mesh (None otherwise)."""
+    if not isinstance(mesh, DataSpaceMesh):
+        return None
+    return RowShard(mesh.space_group, mesh.coords[1], mesh.shape[1])
+
+
+def batch_space_sharding(mesh: DataSpaceMesh):
+    """``shard(batch)``: this rank's block ``(B / n_data, C, H / n_space,
+    W)`` of a global NCHW batch (a tensor or a tuple of them), contiguous
+    along both axes: space rank s holds rows ``[s H/P, (s+1) H/P)``.  The
+    DenseED halves the rows twice (``In_conv`` and the down transition),
+    so ``H / n_space`` must be a multiple of 4."""
+    (n_data, n_space), (d, s) = mesh.shape, mesh.coords
+
+    def shard(batch):
+        if isinstance(batch, (tuple, list)):
+            return type(batch)(shard(b) for b in batch)
+        n, h = batch.shape[0], batch.shape[-2]
+        if n % n_data:
+            raise ValueError(f"batch of {n} not divisible by the mesh's "
+                             f"{n_data} data ranks")
+        if h % (4 * n_space):
+            raise ValueError(f"H={h} over {n_space} space ranks: each "
+                             f"rank's rows must be a multiple of 4")
+        b, r = n // n_data, h // n_space
+        return batch[d * b:(d + 1) * b, ..., s * r:(s + 1) * r, :]
+
+    return shard
 
 
 def shard_batch(batch, mesh: Mesh):
@@ -85,11 +154,34 @@ def shard_batch(batch, mesh: Mesh):
     return batch[mesh.rank * rows:(mesh.rank + 1) * rows]
 
 
+def _has_row_form(conv: torch.nn.Conv2d) -> bool:
+    """A conv of the port's codec (``rows``) as the DenseED builds it: no
+    bias, one group, no dilation, a square stride and padding."""
+    return (hasattr(conv, "rows") and conv.bias is None and conv.groups == 1
+            and conv.dilation == (1, 1) and conv.padding_mode == "zeros"
+            and len(set(conv.stride)) == 1 and len(set(conv.padding)) == 1)
+
+
 def replicate(module: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
     """Make ``module`` a replica over ``mesh``, in place: its parameters
     and buffers take rank 0's values, and every submodule with a
     ``stats_group`` (the port's BatchNorm2d and concat-free DenseBlock)
-    reduces its batch moments over the mesh from now on."""
+    reduces its batch moments over the mesh from now on (over data x space
+    on a 2-D mesh).
+
+    On a 2-D mesh every submodule with a ``rows`` attribute (the port's
+    codec ``Conv2d``, which also serves the upsampling before it) takes
+    this rank's ``RowShard``.  A module with another conv (the cGlow's, or
+    a codec ``Conv2d`` with a bias) or with dropout raises: its row-block
+    form is not ported (ROADMAP E3d)."""
+    rows = row_shard(mesh)
+    if rows is not None:
+        for name, m in module.named_modules():
+            if (isinstance(m, torch.nn.Conv2d) and not _has_row_form(m)
+                    or getattr(m, "drop_rate", 0.0) > 0):
+                raise NotImplementedError(
+                    f"{name or type(m).__name__} under a space mesh: only "
+                    f"the DenseED without dropout is ported (ROADMAP E3d)")
     with torch.no_grad():
         for t in list(module.parameters()) + list(module.buffers()):
             dist.broadcast(t.data, dist.get_global_rank(mesh.group, 0),
@@ -97,13 +189,21 @@ def replicate(module: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
     for m in module.modules():
         if hasattr(m, "stats_group"):
             m.stats_group = mesh.group
+        if rows is not None and hasattr(m, "rows"):
+            m.rows = rows
     return module
 
 
 def all_reduce_grads(params, mesh: Mesh) -> None:
-    """Average the gradients of ``params`` over the mesh in place: one
-    flattened buffer per dtype, one all-reduce each.  Parameters without a
-    gradient are skipped (every rank runs the same graph, so they agree)."""
+    """The gradient of the global loss, in place: one flattened buffer per
+    dtype, summed over every rank in one all-reduce, then divided by the
+    mesh's ``n_data``.  Each rank's loss is its data shard's loss (1-D)
+    or this rank's partial sum of it (2-D, ``ops/darcy.py``), and its
+    backward gives the gradient of the sum of every rank's loss (the
+    halos' and BatchNorm's backward carry the cross-rank terms), so the
+    sum over ranks over ``n_data`` is the gradient of the mean over data
+    shards.  Parameters without a gradient are skipped (every rank runs
+    the same graph, so they agree)."""
     by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
     for p in params:
         if p.grad is not None:
@@ -111,7 +211,7 @@ def all_reduce_grads(params, mesh: Mesh) -> None:
     for grads in by_dtype.values():
         flat = torch.cat([g.reshape(-1) for g in grads])
         dist.all_reduce(flat, group=mesh.group)
-        flat /= mesh.world_size
+        flat /= mesh.n_data
         torch._foreach_copy_(grads, [f.view_as(g) for f, g in zip(
             flat.split([g.numel() for g in grads]), grads)])
 

@@ -1,7 +1,7 @@
 """Data-parallel and spatially sharded runs for the parity checks, shared by
-``tests/test_torch_parallel.py`` (ranks spawned on the CPU with gloo),
-``tests/test_torch_gpu.py`` and ``chip_smoke.py``'s ``[dist]`` phase (one
-NCCL rank on the card).
+``tests/test_torch_parallel.py`` and ``tests/test_torch_parallel_space.py``
+(ranks spawned on the CPU with gloo), ``tests/test_torch_gpu.py`` and
+``chip_smoke.py``'s ``[dist]`` and ``[dpsp]`` phases (NCCL on the card).
 
 Each ``*_run`` takes the rank's mesh (None: one plain process), weights as
 a state dict and the global batch, and returns CPU tensors, so that
@@ -29,7 +29,8 @@ from __future__ import annotations
 
 import torch
 
-from ..parallel.mesh import replicate, shard_batch
+from ..parallel.mesh import (DataSpaceMesh, batch_space_sharding,
+                             dp_sp_mesh, replicate, shard_batch)
 
 CODEC_LOSS_RTOL = 1e-5
 CODEC_STATE_ATOL = 2e-5
@@ -45,7 +46,8 @@ def codec_step(mesh, state_dict: dict, x: torch.Tensor, model_kw: dict,
                dtype=torch.float32):
     """``(step, model)``: a Sobel mixed-residual step (weight bound 10,
     Adam + OneCycle) of a DenseED(**model_kw) holding ``state_dict`` on
-    this rank's rows of the batch ``x``, in ``dtype``."""
+    this rank's part of the batch ``x`` (its samples, or on a data x space
+    mesh its block of them), in ``dtype``."""
     from ..models.codec import DenseED
     from ..ops.filters import SobelFilter
     from ..train.codec_trainer import create_state, make_mixed_residual_step
@@ -56,7 +58,8 @@ def codec_step(mesh, state_dict: dict, x: torch.Tensor, model_kw: dict,
     x = x.to(device, dtype)
     if mesh is not None:
         replicate(model, mesh)
-        x = shard_batch(x, mesh)
+        x = (batch_space_sharding(mesh)(x)
+             if isinstance(mesh, DataSpaceMesh) else shard_batch(x, mesh))
     step = make_mixed_residual_step(state, SobelFilter(x.shape[-1]), 10.0)
     return (lambda: step(x)), model
 
@@ -74,6 +77,16 @@ def codec_run(mesh, state_dict: dict, x: torch.Tensor, model_kw: dict,
                        for k, v in model.state_dict().items()})
     return {"losses": torch.stack(losses).cpu(), "first": states[0],
             "state": states[-1]}
+
+
+def codec_dpsp_run(mesh, shape: tuple[int, int], state_dict: dict,
+                   x: torch.Tensor, model_kw: dict, n_steps: int = 3,
+                   device="cpu", dtype=torch.float32) -> dict:
+    """``codec_run`` on the ``shape`` = (n_data, n_space) data x space
+    mesh over ``mesh``'s process group (every rank calls it): each rank
+    steps on its block of ``x`` (``batch_space_sharding``)."""
+    return codec_run(dp_sp_mesh(*shape, mesh.device), state_dict, x,
+                     model_kw, n_steps, device, dtype)
 
 
 def glow_step(mesh, state_dict: dict, x: torch.Tensor, model_kw: dict,
@@ -129,3 +142,163 @@ def spatial_runs(mesh, cases) -> list[list[torch.Tensor]]:
     from ..parallel.spatial import gather_rows, solve_darcy_spatial
     return [[gather_rows(solve_darcy_spatial(K, mesh, n_iter=it), mesh).cpu()
              for it in iters] for K, iters in cases]
+
+
+# --- the data x space mesh's row blocks ------------------------------------
+
+ROW_BLOCK_RTOL_F64 = 1e-12   # block arithmetic against the whole field
+ROW_BLOCK_RTOL_F32 = 1e-5    # the same on the card in float32 (of max|y|)
+
+
+def row_block_cases(full: bool) -> list[tuple]:
+    """``(name, kind, args)`` of every conv kind of the DenseED and of the
+    Sobel stencils: ``kind`` "conv" ``(k, stride, padding, cin, cout,
+    n_in)``, "up" ``(mode, cin, cout, n_in)`` (x2 upsampling, then a 3x3
+    conv), "sobel" ``(filter_size, correct, n)``.  ``full``: the channels
+    and grids of DenseED [6,8,6]/16/48 at 64^2 (the widest input of each
+    kind); else 3 in, 4 out on 16^2."""
+    def ch(cin, cout):
+        return (cin, cout) if full else (3, 4)
+    n = 64 if full else 16
+    return [
+        ("In_conv 7x7/s2/p3", "conv", (7, 2, 3, *ch(1, 48), n)),
+        ("dense 3x3/p1", "conv", (3, 1, 1, *ch(128, 16), n // 2)),
+        ("down 1x1", "conv", (1, 1, 0, *ch(144, 72), n // 2)),
+        ("down 3x3/s2/p1", "conv", (3, 2, 1, *ch(72, 72), n // 2)),
+        ("up nearest + 3x3/p1", "up", ("nearest", *ch(100, 100), n // 4)),
+        ("up bilinear + 3x3/p1", "up", ("bilinear", *ch(100, 100), n // 4)),
+        ("LastDecoding upsample + 3x3/p1", "up",
+         ("nearest", *ch(98, 49), n // 2)),
+        ("LastDecoding conv3 5x5/p2", "conv", (5, 1, 2, *ch(49, 3), n)),
+    ] + [(f"sobel {fs}x{fs} correct={c}", "sobel", (fs, c, n))
+         for fs in (3, 5) for c in (True, False)]
+
+
+def _cut(x: torch.Tensor, n_blocks: int, a: int, b: int) -> list[tuple]:
+    """``(block, above, below)`` of each row block of ``x``, the halos cut
+    from the neighbouring blocks (zeros at a wall), as the transport
+    would give them."""
+    h = x.shape[-2] // n_blocks
+    out = []
+    for j in range(n_blocks):
+        r0, r1 = j * h, (j + 1) * h
+        above = (x[..., r0 - a:r0, :] if j
+                 else x.new_zeros(*x.shape[:-2], a, x.shape[-1]))
+        below = (x[..., r1:r1 + b, :] if j < n_blocks - 1
+                 else x.new_zeros(*x.shape[:-2], b, x.shape[-1]))
+        out.append((x[..., r0:r1, :], above, below))
+    return out
+
+
+def row_block_case(kind: str, args: tuple, n_blocks: int, t) -> tuple:
+    """``(inputs, run, halo)`` of one case of ``row_block_cases`` in
+    ``n_blocks`` blocks: ``t(*shape)`` draws its tensors, the input and
+    the conv weight (none for Sobel), and ``run(*inputs)`` gives the whole
+    field's result and the blocks' one, computed one after the other in
+    this process."""
+    import torch.nn.functional as F
+    from ..models.codec import upsample_bilinear, upsample_nearest
+    from ..ops.filters import SobelFilter
+    from ..parallel.halo import (RowShard, block_operator, conv_halo,
+                                 conv_rows, upsample_conv_rows,
+                                 upsample_matrix, with_halo)
+    if kind == "sobel":
+        fs, correct, n = args
+        x = t(None, 1, n, n)
+        whole = SobelFilter(n, correct, fs)
+        blocks = [whole.on_rows(RowShard(None, j, n_blocks))
+                  for j in range(n_blocks)]
+        halo = blocks[0].halo()
+
+        def run(x):
+            parts = [(f.grad_h(with_halo(*p)), f.grad_v(with_halo(*p)))
+                     for f, p in zip(blocks, _cut(x, n_blocks, *halo))]
+            return (torch.cat([whole.grad_h(x), whole.grad_v(x)], 1),
+                    torch.cat([torch.cat([p[0] for p in parts], -2),
+                               torch.cat([p[1] for p in parts], -2)], 1))
+        return [x], run, halo
+    if kind == "conv":
+        k, s, p, cin, cout, n = args
+        halo = conv_halo(k, s, p)
+
+        def run(x, w):
+            return (F.conv2d(x, w, None, s, p), torch.cat(
+                [conv_rows(*blk, w, s, p)
+                 for blk in _cut(x, n_blocks, *halo)], -2))
+        return [t(None, cin, n, n), t(cout, cin, k, k)], run, halo
+    mode, cin, cout, n = args
+    up = {"nearest": upsample_nearest, "bilinear": upsample_bilinear}[mode]
+    ops = [block_operator(upsample_matrix(n, mode), j, n_blocks, 1)
+           for j in range(n_blocks)]
+    halo = ops[0][1:]
+
+    def run(x, w):
+        return (F.conv2d(up(x), w, None, 1, 1), torch.cat(
+            [upsample_conv_rows(*blk, torch.from_numpy(op).to(x), w, mode)
+             for blk, (op, _, _) in zip(_cut(x, n_blocks, *halo), ops)],
+            -2))
+    return [t(None, cin, n, n), t(cout, cin, 3, 3)], run, halo
+
+
+def row_block_errors(cases, n_blocks: int, device, dtype, batch: int = 2,
+                     seed: int = 0) -> dict:
+    """For each case of ``row_block_cases``: the largest distance of the
+    block arithmetic from the whole field, relative to the whole field's
+    largest value, over the output and the gradients of a random
+    cotangent with respect to the input and the conv weight; the blocks
+    computed one after the other in this process.  Below float64 also
+    the distances of both from the whole field in float64."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        shape = tuple(batch if d is None else d for d in shape)
+        return torch.from_numpy(rng.standard_normal(shape)).to(device, dtype)
+
+    def leaves(vs):
+        return [v.detach().requires_grad_(True) for v in vs]
+
+    errs = {}
+    for name, kind, args in cases:
+        inputs, run, halo = row_block_case(kind, args, n_blocks, t)
+        inputs = leaves(inputs)
+        y_whole, y_blocks = run(*inputs)
+        g = t(*y_whole.shape)
+        whole = [y_whole.detach(), *torch.autograd.grad(y_whole, inputs, g)]
+        blocks = [y_blocks.detach(),
+                  *torch.autograd.grad(y_blocks, inputs, g)]
+        keys = ["out", "grad_x", "grad_w"][:len(whole)]
+
+        def rel(got, want):
+            return {k: float((a_ - b_).abs().max() / b_.abs().max())
+                    for k, a_, b_ in zip(keys, got, want)}
+
+        errs[name] = {"halo": halo, "grad_w": None, **rel(blocks, whole)}
+        if dtype != torch.float64:
+            # the exact answer's stand-in: the whole field in float64
+            ref = leaves([v.double() for v in inputs])
+            y64 = run(*ref)[0]
+            exact = [y64.detach(), *torch.autograd.grad(y64, ref, g.double())]
+            errs[name]["whole_vs_f64"] = rel(whole, exact)
+            errs[name]["blocks_vs_f64"] = rel(blocks, exact)
+    return errs
+
+
+def halo_runs(mesh, x: torch.Tensor, cases) -> list[dict]:
+    """For each ``(a, b, g_above, g_below)`` of ``cases``: this rank's
+    halo of ``x``'s rows (H split over every rank of ``mesh``) from
+    ``exchange_rows``, and the gradient with respect to its block of
+    ``sum(above * g_above[rank]) + sum(below * g_below[rank])``."""
+    from ..parallel.halo import RowShard, exchange_rows
+    rows = RowShard(mesh.group, mesh.rank, mesh.world_size)
+    h = x.shape[-2] // mesh.world_size
+    out = []
+    for a, b, g_above, g_below in cases:
+        block = x[..., mesh.rank * h:(mesh.rank + 1) * h, :].clone()
+        block.requires_grad_(True)
+        above, below = exchange_rows(block, a, b, rows)
+        ((above * g_above[mesh.rank]).sum()
+         + (below * g_below[mesh.rank]).sum()).backward()
+        out.append({"above": above.detach(), "below": below.detach(),
+                    "grad": block.grad})
+    return out

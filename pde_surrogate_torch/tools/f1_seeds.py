@@ -7,9 +7,14 @@ per seed, all at once on one card (each in its own process and exp dir,
 on one shared data dir labelled first), and prints one JSON line: per
 seed the Adam warmup's final loss, the last epoch's loss, and u / σ₁ / σ₂
 rel-L2 at the last test epoch.  Each run's log goes to ``--out``.
+``--init-weights`` starts every run from one .npz of initial Decoder
+weights and latent: ``f1_jax_init_seed1.npz`` beside this file holds the
+JAX package's for seed 1 (``tools/f1_jax_init.py``).
 
 Run:  python3 -m pde_surrogate_torch.tools.f1_seeds --seeds 1 2 3 \
           --out chiprun_out/f1
+      python3 -m pde_surrogate_torch.tools.f1_seeds --seeds 1 \
+          --init-weights pde_surrogate_torch/tools/f1_jax_init_seed1.npz
 """
 
 from __future__ import annotations
@@ -43,6 +48,8 @@ def main(argv=None) -> int:
     p.add_argument("--seeds", type=int, nargs="+", default=[1, 2, 3])
     p.add_argument("--out", default="chiprun_out/f1")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--init-weights", default=None,
+                   help="a .npz of initial Decoder weights and latent")
     p.add_argument("--extra", nargs=argparse.REMAINDER, default=[],
                    help="further solver flags (a shorter recipe for a try)")
     args = p.parse_args(argv)
@@ -59,7 +66,8 @@ def main(argv=None) -> int:
                "pde_surrogate_torch.cli.solve_conv_mixed_residual",
                *RECIPE, "--seed", str(s), "--device", args.device,
                "--data-dir", data, "--exp-dir", os.path.join(work, f"s{s}"),
-               *args.extra]
+               *(["--init-weights", os.path.abspath(args.init_weights)]
+                 if args.init_weights else []), *args.extra]
         procs[s] = (subprocess.Popen(cmd, stdout=log,
                                      stderr=subprocess.STDOUT), log)
     result = {}

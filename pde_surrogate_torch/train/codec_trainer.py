@@ -15,6 +15,14 @@ global batch: the BatchNorm moments are the global batch's (the model was
 before Adam (where XLA puts its ``psum``), and the returned losses are the
 global batch's.  Every loss term is a mean over equal shards, so the mean
 of the ranks' losses is the global loss.
+
+Under a data x space mesh (``parallel.mesh.dp_sp_mesh``) each rank holds a
+row block of its data shard: the model's convs exchange halo rows, the
+Sobel loss is this rank's partial sum (``ops/darcy.py``), so a data
+shard's loss is the sum over its space ranks and the global loss the mean
+of those over the data ranks.  Only the Sobel objective has a row-block
+form; the finite-volume ones, the supervised step and the eval step raise
+there (ROADMAP E3d).
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ from ..ops.darcy import (flux_pressure_consistency, fv_cg_anchors,
                          fv_cg_error_loss, fv_mixed_residual_loss,
                          mixed_residual_loss)
 from ..ops.filters import SobelFilter
-from ..parallel.mesh import all_mean, all_reduce_grads
+from ..parallel.mesh import all_reduce_grads, all_reduce_sum, row_shard
 from ..utils.metrics import relative_l2, squared_error_sum
 from .schedules import one_cycle_schedule
 
@@ -115,9 +123,16 @@ def _physics_loss(physics: str, x, output, sobel, weight_bound,
     raise ValueError(f"unknown physics loss: {physics}")
 
 
+def _no_rows(state: CodecState, what: str) -> None:
+    if row_shard(state.mesh) is not None:
+        raise NotImplementedError(f"{what} under a data x space mesh is not "
+                                  f"ported (ROADMAP E3d)")
+
+
 def _apply_update(state: CodecState, loss: torch.Tensor):
-    """Backward, the gradients averaged over the mesh, then Adam at the
-    scheduled lr of this update."""
+    """Backward, the gradient of the global loss from every rank's
+    (``all_reduce_grads``: the sum over ranks over the data ranks), then
+    Adam at the scheduled lr of this update."""
     opt = state.optimizer
     opt.zero_grad(set_to_none=True)
     loss.backward()
@@ -131,12 +146,14 @@ def _apply_update(state: CodecState, loss: torch.Tensor):
 
 
 def global_metrics(metrics: dict, mesh) -> dict:
-    """Scalar metrics detached, and averaged over the mesh's ranks in one
-    all-reduce."""
+    """Scalar metrics detached, and the global batch's from every rank's
+    in one all-reduce: the sum over the ranks over the data ranks (a data
+    shard's metric, or on a 2-D mesh a space rank's partial sum of it)."""
     if mesh is None:
         return {k: v.detach() for k, v in metrics.items()}
     names = list(metrics)
-    vals = all_mean(torch.stack([metrics[k].detach() for k in names]), mesh)
+    vals = all_reduce_sum(torch.stack([metrics[k].detach() for k in names]),
+                          mesh.group) / mesh.n_data
     return dict(zip(names, vals.unbind()))
 
 
@@ -149,8 +166,17 @@ def make_mixed_residual_step(state: CodecState, sobel: SobelFilter,
     """Label-free physics step on a batch of K images (B, 1, H, W):
     train-mode forward (BN running stats update), the ``physics`` objective
     (``_physics_loss``), backward, Adam at the scheduled lr of this
-    update."""
+    update.  Under a data x space mesh the batch is this rank's block
+    (``parallel.mesh.batch_space_sharding``) and ``sobel`` the whole
+    fields' filter."""
     model = state.model
+    rows = row_shard(state.mesh)
+    if rows is not None:
+        if physics != "sobel":
+            raise NotImplementedError(
+                f"physics='{physics}' under a data x space mesh needs the "
+                f"row-sharded PCG in the loss (ROADMAP E3d)")
+        sobel = sobel.on_rows(rows)
 
     def step(x: torch.Tensor) -> dict:
         model.train()
@@ -170,6 +196,7 @@ def make_mle_step(state: CodecState):
     """Supervised MSE step on (K, labels) batches
     (train_codec_max_likelihood.py:201-213): train-mode forward, mean
     squared error against the labels, backward, Adam."""
+    _no_rows(state, "the supervised step")
     model = state.model
 
     def step(x: torch.Tensor, y: torch.Tensor) -> dict:
@@ -189,6 +216,7 @@ def make_eval_step(state: CodecState, sobel: SobelFilter,
     """Test step (reference train_codec_mixed_residual.py:166-206): BN in
     eval mode, the ``physics`` loss, per-sample (rel_l2, sse) against the
     labels, and the label-free flux-pressure consistency."""
+    _no_rows(state, "the eval step")
     model = state.model
 
     @torch.no_grad()

@@ -525,6 +525,64 @@ def test_solve_conv_cli(tmp_path, linesearch):
                               only_input=False)[1][1])
 
 
+def _f1_jax_init():
+    """``tools/f1_jax_init.py`` as a module (``tools/`` is no package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "f1_jax_init", ROOT / "tools" / "f1_jax_init.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_solve_conv_cli_starts_from_jax_init(tmp_path):
+    """--init-weights: the Decoder's weights and latent from a .npz of the
+    JAX package's initialisation (``tools/f1_jax_init.py``, blocks 2,2 at
+    16^2); after one L-BFGS epoch of fixed steps of lr 0 the prediction is
+    the JAX Decoder's at its init, in train mode (1e-5 of its largest
+    value)."""
+    import jax
+
+    from pde_surrogate_tpu.models.codec import Decoder as JDecoder
+    arrays = _f1_jax_init().jax_decoder_init(1, blocks=(2, 2), imsize=16)
+    np.savez(tmp_path / "init.npz", **arrays)
+    latent = np.moveaxis(arrays["latent"], 1, -1)
+    jm = JDecoder(1, out_channels=3, blocks=[2, 2])
+    y, _ = jm.apply(jm.init(jax.random.key(1), latent, train=False), latent,
+                    train=True, mutable=["batch_stats"])
+    want = np.moveaxis(np.asarray(y)[0], -1, 0)
+    t_conv.main(_solver_argv(
+        tmp_path, "--blocks", "2,2", "--epochs", "1", "--test-freq", "1",
+        "--linesearch", "fixed", "--lr", "0", "--adam-warmup", "0",
+        "--init-weights", str(tmp_path / "init.npz")))
+    run = (tmp_path / "e" / "conv_mixed_residual" /
+           "grf_kle128_idx1_dz1_blocks[2, 2]_lr0.0_wb10.0_epochs1")
+    np.testing.assert_allclose(np.load(run / "epoch1.npy"), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+def test_f1_jax_init_file_fits_the_canonical_decoder():
+    """The committed JAX initialisation of the canonical conv solver
+    (Decoder [8,6]/16/48, seed 1) is what ``tools/f1_jax_init.py`` makes
+    now, array for array and exactly; it loads strictly into the port's
+    Decoder, and its latent is the seed's own numpy draw, as the CLI
+    makes it."""
+    from pde_surrogate_torch.models.codec import Decoder
+    path = ROOT / "pde_surrogate_torch" / "tools" / "f1_jax_init_seed1.npz"
+    fresh = _f1_jax_init().jax_decoder_init(1)
+    with np.load(path) as init:
+        assert sorted(init.files) == sorted(fresh)
+        for k in init.files:
+            np.testing.assert_array_equal(init[k], fresh[k], err_msg=k)
+        Decoder(1, 3, [8, 6]).load_state_dict(
+            {k: torch.from_numpy(init[k]) for k in init.files
+             if k != "latent"})
+        latent = init["latent"]
+    want = (np.random.default_rng(1).standard_normal((1, 16, 16, 1))
+            .astype(np.float32) * 0.5)
+    np.testing.assert_array_equal(latent, np.moveaxis(want, -1, 1))
+
+
 def test_solve_conv_nonlinear_cli(tmp_path):
     """--nonlinear: the FV-Newton oracle obeys the boundary conditions and
     is cached as output_fv_newton.npy; a second run reuses it (mtime

@@ -302,3 +302,47 @@ def test_spatial_solve_on_one_nccl_rank_matches_k1(cuda, tmp_path):
                 workdir=str(tmp_path))
     torch.testing.assert_close(u, solve_darcy_cg(K.to(cuda), 24 * 32).cpu(),
                                atol=5e-5, rtol=0)
+
+
+@pytest.mark.parametrize("n_blocks", [2, 4])
+def test_row_blocks_on_gpu_match_the_whole_field(cuda, n_blocks):
+    """The data x space mesh's block arithmetic at DenseED [6,8,6]/16/48's
+    widths on 64^2, batch 32, in float32: every conv kind, the
+    upsampling before a conv and the Sobel stencils, forward and backward,
+    within 1e-5 of the whole field's cuDNN / matmul result's largest
+    value (``tools/dist_check.row_block_errors``)."""
+    from pde_surrogate_torch.tools import dist_check as dc
+    errs = dc.row_block_errors(dc.row_block_cases(full=True), n_blocks,
+                               cuda, torch.float32, batch=32)
+    for name, e in errs.items():
+        for k in ("out", "grad_x", "grad_w"):
+            if e[k] is not None:
+                assert e[k] <= dc.ROW_BLOCK_RTOL_F32, (name, k, e)
+
+
+def test_dpsp_codec_steps_on_one_nccl_rank_match_plain(cuda, tmp_path):
+    """Three DenseED steps on a 1x1 data x space mesh of one NCCL rank
+    (the row-block convs, their halos at both walls, the partial loss)
+    against three plain steps on the card, in float64."""
+    from pde_surrogate_torch.parallel.launch import run
+    from pde_surrogate_torch.tools import dist_check as dc
+    sd, x = _dp_inputs()
+    got = run(dc.codec_dpsp_run, 1, (1, 1), sd, x, DP_KW, 3, "cuda",
+              torch.float64, device="cuda", workdir=str(tmp_path))
+    _assert_dp_equal(got, dc.codec_run(None, sd, x, DP_KW, 3, "cuda",
+                                       torch.float64))
+
+
+def test_dpsp_codec_steps_on_two_gpus_match_plain(cuda, tmp_path):
+    """The same on a 1x2 mesh, one GPU per space rank: the halos cross
+    between the cards (both replicas equal)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs: ranks never share one")
+    from pde_surrogate_torch.parallel.launch import spawn
+    from pde_surrogate_torch.tools import dist_check as dc
+    sd, x = _dp_inputs()
+    ranks = spawn(dc.codec_dpsp_run, 2, (1, 2), sd, x, DP_KW, 3, "cuda",
+                  torch.float64, device="cuda", workdir=str(tmp_path))
+    _assert_dp_equal(ranks[0], dc.codec_run(None, sd, x, DP_KW, 3, "cuda",
+                                            torch.float64))
+    _assert_dp_equal(ranks[1], ranks[0])

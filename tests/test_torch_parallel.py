@@ -19,7 +19,8 @@ weights move with ``utils/from_jax``.
   losses in float64 within 2e-5 relative of one process, the ranks'
   replicas bit-equal; the first, in float32 with JAX's noise, within 2e-5
   of JAX's.
-* ``DeviceDataset`` under a mesh, and the 2-D mesh that is not ported.
+* ``DeviceDataset`` under a mesh, and what the 2-D mesh refuses (the 2-D
+  mesh's parity: ``tests/test_torch_parallel_space.py``).
 * The sharded solve on 4 ranks at 32^2 against JAX ``solve_darcy`` (5e-4
   at 1200 iterations, as ``tests/test_spatial_parallel.py``) and against
   JAX's own circular-ring sharded solve.
@@ -235,11 +236,57 @@ def test_device_dataset_rejects_an_indivisible_batch():
         tmesh.shard_batch(torch.zeros(10, 2), _fake_mesh(1, 4))
 
 
-def test_dp_sp_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="E3c"):
-        tmesh.dp_sp_mesh(4, 2)
-    with pytest.raises(NotImplementedError, match="E3c"):
-        tmesh.batch_space_sharding(None)
+def _dp_sp_refusals(mesh):
+    """What the data x space mesh raises on, in a one-rank gloo group."""
+    from pde_surrogate_torch.models.codec import Conv2d, DenseED
+    from pde_surrogate_torch.models.glow import MultiScaleCondGlow
+    from pde_surrogate_torch.ops.filters import SobelFilter
+    from pde_surrogate_torch.parallel.halo import RowShard
+    from pde_surrogate_torch.train.codec_trainer import (
+        create_state, make_mixed_residual_step)
+    with pytest.raises(ValueError, match="a 4x2 mesh in a process group of "
+                                         "1 ranks"):
+        tmesh.dp_sp_mesh(4, 2, "cpu")
+    m = tmesh.dp_sp_mesh(1, 1, "cpu")
+    assert (m.coords, m.shape, m.n_data) == ((0, 0), (1, 1), 1)
+    shard = tmesh.batch_space_sharding(m)
+    assert shard(torch.zeros(2, 1, 8, 8)).shape == (2, 1, 8, 8)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        shard(torch.zeros(2, 1, 6, 6))
+    kw = dict(in_channels=1, out_channels=3, imsize=8, blocks=[1, 1, 1],
+              growth_rate=2, init_features=4)
+    model = tmesh.replicate(DenseED(**kw), m)
+    state = create_state(model, 1e-3, 10, mesh=m)
+    for physics in ("fv", "fvcg", "sobel_fvcg"):
+        with pytest.raises(NotImplementedError, match="E3d"):
+            make_mixed_residual_step(state, SobelFilter(8), physics=physics)
+    with pytest.raises(NotImplementedError, match="E3d"):
+        tmesh.replicate(DenseED(**kw, drop_rate=0.1), m)
+    # a codec conv with a bias keeps it on the whole field, and has no
+    # row-block form
+    conv = Conv2d(1, 2, 3, padding=1)
+    x = torch.randn(1, 1, 8, 8)
+    torch.testing.assert_close(conv(x), torch.nn.functional.conv2d(
+        x, conv.weight, conv.bias, 1, 1), rtol=0, atol=0)
+    with pytest.raises(NotImplementedError, match="E3d"):
+        tmesh.replicate(torch.nn.Sequential(conv), m)
+    with pytest.raises(NotImplementedError, match="E3d"):
+        tmesh.replicate(MultiScaleCondGlow(
+            img_size=8, x_channels=1, y_channels=3, enc_blocks=[1, 1],
+            flow_blocks=[1, 1]), m)
+    # a 5x5 Sobel reads 2 rows beyond its block: 8 blocks of 1 row raise
+    with pytest.raises(ValueError, match="narrower than the operator's halo"):
+        SobelFilter(8, filter_size=5).on_rows(RowShard(None, 0, 8)).halo()
+
+
+def test_dp_sp_mesh_validation(tmp_path):
+    """``dp_sp_mesh`` raises on a shape that is not the world size,
+    ``batch_space_sharding`` on rows per rank that are not a multiple of
+    4; under a space mesh the finite-volume objectives, dropout, a conv
+    with a bias and another model than the DenseED raise naming ROADMAP
+    E3d, and a block narrower than the Sobel's halo raises."""
+    from pde_surrogate_torch.parallel.launch import run
+    run(_dp_sp_refusals, 1, device="cpu", workdir=str(tmp_path))
 
 
 def _wall_field():
