@@ -70,7 +70,15 @@
    1x1 mesh in a one-rank NCCL group (every conv on its row block, the
    halos at both walls, the partial loss) against the plain step, three
    steps in float64 and the first float32 loss; (c) the f32 step, plain
-   and mesh, timed in turns by CUDA events, with the peak memory of each.
+   and mesh, timed in turns by CUDA events, with the peak memory of each;
+   (d) the same for fv, fvcg and sobel_fvcg (64 CG iterations) and the
+   supervised step (K1's labels); (e) the eval step (sobel_fvcg) against
+   the plain one in float32, its per-sample rel-L2 and SSE, consistency
+   and loss within 1e-5; (f) dropout 0.1, three float64 steps, both
+   drawing from the step's generator; (g) the cGlow (enc [3,4,4], flow
+   [6,6,6], 64^2, batch 32) with ActNorm data-init over the mesh and
+   three float64 reverse-KL losses within 2e-5, the f32 step timed with
+   its peak.
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Any failed check raises
 and the script exits non-zero without that line; so does a machine without
@@ -1253,10 +1261,12 @@ def phase_dist(path: "MainPath") -> None:
 
 
 def _dpsp_checks(mesh) -> None:
-    """[dpsp] (b) and (c) on one rank of a one-rank NCCL group: the 1x1
-    data x space mesh's steps against the plain ones, three in float64
-    and the first in float32 (``tools/dist_check``'s rules), then the f32
-    steps timed in turns, with the peak memory of each."""
+    """[dpsp] (b)-(g) on one rank of a one-rank NCCL group: the 1x1
+    data x space mesh's Sobel steps against the plain ones, three in
+    float64 and the first in float32 (``tools/dist_check``'s rules), then
+    the f32 steps timed in turns, with the peak memory of each (b, c);
+    then the finite-volume objectives and the supervised step (d), the
+    eval step (e), dropout (f) and the cGlow (g)."""
     from pde_surrogate_torch.data.grf import sample_kle
     from pde_surrogate_torch.models.codec import DenseED
     from pde_surrogate_torch.parallel.mesh import dp_sp_mesh
@@ -1299,6 +1309,155 @@ def _dpsp_checks(mesh) -> None:
         f"({ms_m / ms_p:.2f}x); peak memory of a step: plain "
         f"{peaks['plain']:.1f} MiB, mesh {peaks['mesh']:.1f} MiB; {card}")
     del steps
+    torch.cuda.empty_cache()
+    from pde_surrogate_torch.solvers.fd_darcy import solve_darcy_batch_fast
+    y = solve_darcy_batch_fast(x[:, 0].to(dev)).cpu()
+    _dpsp_objectives(m2, sd, x, y, card)
+    _dpsp_eval(m2, sd, x, y, card)
+    _dpsp_dropout(m2, sd, x, card)
+    _dpsp_glow(mesh, m2, card)
+
+
+def _peak_mib(step) -> float:
+    """Peak device memory of one call of ``step`` after a first one."""
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**20
+
+
+def _state_err(got: dict, want: dict) -> float:
+    return max(float((v - want[k]).abs().max()) for k, v in got.items()
+               if not k.endswith("num_batches_tracked"))
+
+
+def _dpsp_objectives(m2, sd, x, y, card) -> None:
+    """[dpsp] (d): the fv, fvcg and sobel_fvcg steps (64 CG iterations)
+    and the supervised step on the 1x1 mesh against the plain steps:
+    three in float64 under (b)'s bounds, the first float32 loss too; the
+    f32 steps timed in turns, with the peak memory of each."""
+    from pde_surrogate_torch.tools import dist_check as dc
+    dev = m2.device
+    for obj in ("fv", "fvcg", "sobel_fvcg", "mle"):
+        kw = {"physics": obj, "y": y, "n_cg": 64}
+        m64 = dc.codec_run(m2, sd, x, DIST_CODEC, 3, dev, torch.float64, **kw)
+        p64 = dc.codec_run(None, sd, x, DIST_CODEC, 3, dev, torch.float64,
+                           **kw)
+        m32 = dc.codec_run(m2, sd, x, DIST_CODEC, 1, dev, **kw)
+        p32 = dc.codec_run(None, sd, x, DIST_CODEC, 1, dev, **kw)
+        loss_rel = _rel(m64["losses"], p64["losses"])
+        state_err = _state_err(m64["state"], p64["state"])
+        first_rel = _rel(m32["losses"], p32["losses"])
+        steps = {name: dc.codec_step(m, sd, x, DIST_CODEC, dev, **kw)[0]
+                 for name, m in (("plain", None), ("mesh", m2))}
+        peaks = {name: _peak_mib(st) for name, st in steps.items()}
+        ms_p, ms_m = _turns(steps["plain"], steps["mesh"], reps=3, warmup=1)
+        log(f"[dpsp] (d) {obj}: 3 steps in float64: loss {loss_rel:.3e} "
+            f"relative (bound {dc.CODEC_LOSS_RTOL:g}), parameters and BN "
+            f"buffers {state_err:.3e} (bound {dc.CODEC_STATE_ATOL:g}); "
+            f"first float32 loss {float(p32['losses'][0]):.6e}, mesh "
+            f"{first_rel:.3e} relative; step f32: plain {ms_p:.3f} ms, 1x1 "
+            f"mesh {ms_m:.3f} ms ({ms_m / ms_p:.2f}x); peak plain "
+            f"{peaks['plain']:.1f} MiB, mesh {peaks['mesh']:.1f} MiB; "
+            f"{card}")
+        check(loss_rel <= dc.CODEC_LOSS_RTOL
+              and first_rel <= dc.CODEC_LOSS_RTOL
+              and state_err <= dc.CODEC_STATE_ATOL,
+              f"[dpsp] (d) {obj}: the mesh steps differ from the plain steps")
+        del steps
+        torch.cuda.empty_cache()
+
+
+def _dpsp_eval(m2, sd, x, y, card) -> None:
+    """[dpsp] (e): the eval step (sobel_fvcg, 64 CG iterations) on the
+    1x1 mesh against the plain one in float32: per-sample rel-L2 and SSE,
+    the consistency and the loss within 1e-5 relative."""
+    from pde_surrogate_torch.tools import dist_check as dc
+    got = dc.codec_eval_run(m2, None, sd, x, y, DIST_CODEC, "sobel_fvcg", 64,
+                            m2.device)
+    want = dc.codec_eval_run(None, None, sd, x, y, DIST_CODEC, "sobel_fvcg",
+                             64, m2.device)
+    errs = {k: _rel(got[k], want[k])
+            for k in ("rel_l2", "sse", "consistency", "loss")}
+    log("[dpsp] (e) eval sobel_fvcg, 1x1 mesh vs plain, float32: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" relative (bound 1e-5); {card}")
+    check(max(errs.values()) <= 1e-5,
+          "[dpsp] (e): the mesh eval step differs from the plain one")
+
+
+def _dpsp_dropout(m2, sd, x, card) -> None:
+    """[dpsp] (f): DenseED with dropout 0.1, three float64 Sobel steps on
+    the 1x1 mesh against the plain steps, both drawing their masks from
+    the step's generator (seed 0, step), under (b)'s bounds."""
+    from pde_surrogate_torch.tools import dist_check as dc
+    kw = dict(DIST_CODEC, drop_rate=0.1)
+    m64 = dc.codec_run(m2, sd, x, kw, 3, m2.device, torch.float64)
+    p64 = dc.codec_run(None, sd, x, kw, 3, m2.device, torch.float64)
+    loss_rel = _rel(m64["losses"], p64["losses"])
+    state_err = _state_err(m64["state"], p64["state"])
+    log(f"[dpsp] (f) dropout 0.1, 3 steps in float64: loss {loss_rel:.3e} "
+        f"relative (bound {dc.CODEC_LOSS_RTOL:g}), parameters and BN buffers "
+        f"{state_err:.3e} (bound {dc.CODEC_STATE_ATOL:g}); {card}")
+    check(loss_rel <= dc.CODEC_LOSS_RTOL
+          and state_err <= dc.CODEC_STATE_ATOL,
+          "[dpsp] (f): the mesh dropout steps differ from the plain steps")
+
+
+def _dpsp_glow(mesh, m2, card) -> None:
+    """[dpsp] (g): the cGlow (enc [3,4,4], flow [6,6,6], 64^2, batch 32,
+    heads at 1e-3) with ActNorm data-init on the 1x1 mesh (the group's
+    moments, within 2e-5 of its largest value) and three float64
+    reverse-KL steps (Sobel) against the plain ones: losses within the
+    [dist] cglow bound, parameters and buffers within (b)'s; the f32 step (after the
+    data-init) timed in turns, with the peak memory of each and of the
+    data mesh's step (``mesh``), which parts the synced BatchNorm's
+    memory from the row blocks'."""
+    from pde_surrogate_torch.data.grf import sample_kle
+    from pde_surrogate_torch.solvers.fd_darcy import solve_darcy_batch_fast
+    from pde_surrogate_torch.tools import dist_check as dc
+    from pde_surrogate_torch.tools.glow_check import glow_model
+    dev = m2.device
+    sd = glow_model(64, DIST_GLOW["enc_blocks"], DIST_GLOW["flow_blocks"],
+                    1e-3, "cpu").state_dict()
+    x = torch.from_numpy(sample_kle(32, 64, 512, rng=4))[:, None]
+    y = solve_darcy_batch_fast(x[:, 0].to(dev)).cpu()
+    m64 = dc.glow_run(m2, sd, x, DIST_GLOW, 3, None, dev, torch.float64,
+                      init_y=y)
+    p64 = dc.glow_run(None, sd, x, DIST_GLOW, 3, None, dev, torch.float64,
+                      init_y=y)
+    loss_rel = _rel(m64["losses"], p64["losses"])
+    init_err = max(float((v - p64["init"][k]).abs().max()
+                         / p64["init"][k].abs().max())
+                   for k, v in m64["init"].items()
+                   if k.endswith(("norm.weight", "norm.bias")))
+    state_err, state_key = max(
+        (float((v - p64["state"][k]).abs().max()), k)
+        for k, v in m64["state"].items()
+        if not k.endswith("num_batches_tracked"))
+    steps = {name: dc.glow_step(m, sd, x, DIST_GLOW, dev, init_y=y)[0]
+             for name, m in (("plain", None), ("data", mesh), ("mesh", m2))}
+    peaks = {name: _peak_mib(st) for name, st in steps.items()}
+    del steps["data"]
+    torch.cuda.empty_cache()
+    ms_p, ms_m = _turns(steps["plain"], steps["mesh"], reps=3, warmup=1)
+    log(f"[dpsp] (g) cglow enc [3,4,4] flow [6,6,6] 64^2 batch 32, ActNorm "
+        f"data-init {init_err:.3e} of max (bound {dc.GLOW_LOSS_RTOL:g}); 3 "
+        f"losses in float64 {loss_rel:.3e} relative (bound "
+        f"{dc.GLOW_LOSS_RTOL:g}), parameters and buffers after them "
+        f"{state_err:.3e} (bound {dc.CODEC_STATE_ATOL:g}; largest in "
+        f"{state_key}); step f32: "
+        f"plain {ms_p:.3f} ms, 1x1 mesh {ms_m:.3f} ms ({ms_m / ms_p:.2f}x); "
+        f"peak plain {peaks['plain']:.1f} MiB, data mesh "
+        f"{peaks['data']:.1f} MiB, 1x1 mesh {peaks['mesh']:.1f} MiB; {card}")
+    check(loss_rel <= dc.GLOW_LOSS_RTOL and init_err <= dc.GLOW_LOSS_RTOL
+          and state_err <= dc.CODEC_STATE_ATOL,
+          "[dpsp] (g): the mesh cGlow's data init, losses or state differ "
+          "from the plain one's")
+    del steps
+    torch.cuda.empty_cache()
 
 
 def phase_dpsp(path: "MainPath") -> None:

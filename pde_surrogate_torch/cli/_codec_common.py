@@ -229,10 +229,10 @@ def _state_kw(args) -> dict:
 
 def _train_step(state, loss_kind: str, sobel, args, physics_kw: dict):
     if loss_kind == "mle":
-        return make_mle_step(state)
+        return make_mle_step(state, dropout_seed=args.seed)
     if loss_kind == "mixed_residual":
         return make_mixed_residual_step(state, sobel, args.weight_bound,
-                                        **physics_kw)
+                                        **physics_kw, dropout_seed=args.seed)
     raise ValueError(f"unknown loss_kind: {loss_kind!r}")
 
 

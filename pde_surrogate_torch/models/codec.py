@@ -26,9 +26,16 @@ so that reference ``.pth`` state dicts load by name.
   ``bn_size * growth``, then BN-ReLU-3x3, where the input is wider).
 * On a row block (``parallel.mesh.replicate`` under a data x space mesh
   sets every ``Conv2d.rows``): each conv exchanges its halo rows with the
-  neighbouring ranks and runs without H-padding, and an upsampling
-  followed by a conv exchanges one low-resolution row a side
-  (``parallel/halo.py``).  Without it every path is as before.
+  neighbouring ranks and runs without H-padding (its bias, if any, added
+  after), and an upsampling followed by a conv exchanges one
+  low-resolution row a side (``parallel/halo.py``).  Without it every
+  path is as before.
+* Dropout in training draws its masks from the step's generator
+  (``dropout_masks``, which the trainers wrap around the forward): the
+  global batch's masks, of which each rank keeps its samples and rows,
+  as the JAX package's ``fold_in(key(seed), step)``; remat draws them
+  again in its recomputation.  A model called outside it drops with
+  torch's global RNG, which a mesh refuses.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from ..parallel.halo import (RowShard, block_operator, conv_halo, conv_rows,
 from ..parallel.mesh import all_reduce_sum
 
 __all__ = ["DenseED", "Decoder", "BatchNorm2d", "batch_moments",
+           "Conv2d", "MaskSource", "dropout_masks",
            "module_size", "upsample_nearest", "upsample_bilinear"]
 
 
@@ -141,31 +149,34 @@ def upsample_bilinear(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
 _UPSAMPLE = {"nearest": upsample_nearest, "bilinear": upsample_bilinear}
 
 
-def _conv2d(x, weight, stride: int, padding: int, rows: RowShard | None):
-    """``F.conv2d`` without bias, with symmetric padding, on the whole
-    field or, with ``rows``, on this rank's row block (halo rows
-    exchanged; a 1x1 conv reads no other rows)."""
+def _conv2d(x, weight, stride: int, padding: int, rows: RowShard | None,
+            bias=None):
+    """``F.conv2d`` with symmetric padding, on the whole field or, with
+    ``rows``, on this rank's row block (halo rows exchanged; a 1x1 conv
+    reads no other rows; the bias added after the block conv)."""
     if rows is None or weight.shape[-2] == 1:
-        return F.conv2d(x, weight, None, stride, padding)
+        return F.conv2d(x, weight, bias, stride, padding)
     a, b = conv_halo(weight.shape[-2], stride, padding)
     return conv_rows(x, *exchange_rows(x, a, b, rows), weight, stride,
-                     padding)
+                     padding, bias)
 
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` that computes in its input's dtype: f32 weights are
     cast to bf16 for a bf16 input (flax's ``nn.Conv(dtype=bfloat16)``).
     With ``rows`` set its input is a row block (``parallel/halo.py``);
-    ``parallel.mesh.replicate`` sets it only on a conv without bias, of
-    one group, with a square stride and padding, as the DenseED's."""
+    ``parallel.mesh.replicate`` sets it on a conv of one group, without
+    dilation, with a square stride and padding (the DenseED's and the
+    cGlow's)."""
 
     rows: RowShard | None = None
 
     def forward(self, x):
         w = self.weight.to(x.dtype)
+        b = None if self.bias is None else self.bias.to(x.dtype)
         if self.rows is None:
-            return self._conv_forward(x, w, self.bias)
-        return _conv2d(x, w, self.stride[0], self.padding[0], self.rows)
+            return self._conv_forward(x, w, b)
+        return _conv2d(x, w, self.stride[0], self.padding[0], self.rows, b)
 
     def upsampled(self, x, mode: str):
         """This conv of ``x`` upsampled x2 (``mode``); on a row block one
@@ -183,12 +194,110 @@ class Conv2d(nn.Conv2d):
                 self.rows.index, self.rows.size, extra=p)
             cache[key] = (torch.from_numpy(op).to(x.device, x.dtype), a, b)
         op, a, b = cache[key]
-        return upsample_conv_rows(x, *exchange_rows(x, a, b, self.rows), op,
-                                  self.weight.to(x.dtype), mode)
+        y = upsample_conv_rows(x, *exchange_rows(x, a, b, self.rows), op,
+                               self.weight.to(x.dtype), mode)
+        return y if self.bias is None else y + self.bias.to(x.dtype)[
+            :, None, None]
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1, padding: int = 0):
     return Conv2d(cin, cout, k, stride=stride, padding=padding, bias=False)
+
+
+class MaskSource:
+    """The dropout masks of one training step, drawn from ``generator``
+    (``utils/config.make_generator(device, seed, step)``, the JAX
+    package's ``fold_in(key(seed), step)``): each dropout call draws a
+    uniform mask for the whole fields of the global batch, ``n_data``
+    times this rank's samples and ``rows.size`` times its rows, in float32
+    whatever the compute dtype, and keeps this rank's samples
+    (``data_index``) and rows.  One process, the data mesh and the data x
+    space mesh thus drop the same elements of the global batch.  With
+    ``record`` the masks handed out are kept in ``drawn``, in call order
+    (a rematerialised forward's again), to be checked."""
+
+    def __init__(self, generator: torch.Generator, n_data: int = 1,
+                 data_index: int = 0, rows: RowShard | None = None,
+                 record: bool = False):
+        self.generator = generator
+        self.n_data, self.data_index = n_data, data_index
+        self.rows = rows
+        self.drawn: list[torch.Tensor] | None = [] if record else None
+
+    def keep(self, shape, p: float) -> torch.Tensor:
+        """This rank's bool mask of kept elements for an input of
+        ``shape`` (N, C, H, W) at drop rate ``p``."""
+        n, c, h, w = shape
+        s, size = ((0, 1) if self.rows is None
+                   else (self.rows.index, self.rows.size))
+        u = torch.rand((n * self.n_data, c, h * size, w),
+                       generator=self.generator,
+                       device=self.generator.device)
+        d = self.data_index
+        keep = u[d * n:(d + 1) * n, :, s * h:(s + 1) * h] >= p
+        if self.drawn is not None:
+            self.drawn.append(keep)
+        return keep
+
+    @contextlib.contextmanager
+    def replay(self, state: torch.Tensor):
+        """Draw again from the generator's ``state`` (a rematerialised
+        forward), then go on from where the generator was."""
+        now = self.generator.get_state()
+        self.generator.set_state(state)
+        try:
+            yield
+        finally:
+            self.generator.set_state(now)
+
+
+def _dropout(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``module``'s dropout of ``x`` in training: with the step's masks
+    (``module.masks``, a ``MaskSource`` set by ``dropout_masks``), else
+    ``F.dropout`` from torch's global RNG, which a mesh refuses (its ranks
+    would draw the same masks for different samples)."""
+    p = module.drop_rate
+    if not (p > 0 and module.training):
+        return x
+    if module.masks is None:
+        if module.norm1.stats_group is not None:
+            raise ValueError("dropout under a mesh draws its masks from "
+                             "the step's generator: wrap the forward in "
+                             "models.codec.dropout_masks")
+        return F.dropout(x, p, True)
+    keep = module.masks.keep(x.shape, p)
+    return x * keep.to(x.dtype) * (1.0 / (1.0 - p))
+
+
+@contextlib.contextmanager
+def dropout_masks(model: nn.Module, seed: int, step: int, mesh=None,
+                  record: bool = False):
+    """Within the block, every dropout of ``model`` draws its masks from
+    one ``MaskSource`` of (``seed``, ``step``), this rank's part of the
+    global batch's under ``mesh`` (a data or data x space mesh); yields
+    it (None when ``model`` has no dropout)."""
+    layers = [m for m in model.modules() if getattr(m, "drop_rate", 0) > 0]
+    if not layers:
+        yield None
+        return
+    from ..parallel.mesh import DataSpaceMesh, row_shard
+    from ..utils.config import make_generator
+    device = next(model.parameters()).device
+    if mesh is None:
+        n_data, index = 1, 0
+    elif isinstance(mesh, DataSpaceMesh):
+        n_data, index = mesh.shape[0], mesh.coords[0]
+    else:
+        n_data, index = mesh.world_size, mesh.rank
+    src = MaskSource(make_generator(device, seed, step), n_data, index,
+                     row_shard(mesh), record)
+    for m in layers:
+        m.masks = src
+    try:
+        yield src
+    finally:
+        for m in layers:
+            m.masks = None
 
 
 def batch_moments(x: torch.Tensor, group=None
@@ -240,6 +349,7 @@ class DenseLayer(nn.Module):
         super().__init__()
         self.norm1 = BatchNorm2d(in_features)
         self.drop_rate = drop_rate
+        self.masks: MaskSource | None = None
         self.bottleneck = bottleneck and in_features > bn_size * growth_rate
         if self.bottleneck:
             self.conv1 = _conv(in_features, bn_size * growth_rate, 1)
@@ -253,9 +363,7 @@ class DenseLayer(nn.Module):
         y = self.conv1(F.relu(self.norm1(x)))
         if self.bottleneck:
             y = self.conv2(F.relu(self.norm2(y)))
-        if self.drop_rate > 0:
-            y = F.dropout(y, self.drop_rate, self.training)
-        return torch.cat([x, y], dim=1)
+        return torch.cat([x, _dropout(self, y)], dim=1)
 
     def forward_groups(self, groups, moments):
         """The layer's new growth channels from a list of feature groups
@@ -287,10 +395,7 @@ class DenseLayer(nn.Module):
             o = _conv2d(y, k, 1, 1, self.conv1.rows)
             out = o if out is None else out + o
             start = end
-        out = out.to(groups[0].dtype)
-        if self.drop_rate > 0:
-            out = F.dropout(out, self.drop_rate, self.training)
-        return out
+        return _dropout(self, out.to(groups[0].dtype))
 
 
 class DenseBlock(nn.Module):
@@ -322,8 +427,12 @@ class DenseBlock(nn.Module):
 
     def forward(self, x):
         if self.remat and self.training and torch.is_grad_enabled():
+            masks = next((m.masks for m in self.children()
+                          if m.masks is not None), None)
+            state = None if masks is None else masks.generator.get_state()
             return checkpoint(self._forward, x, use_reentrant=False,
-                              context_fn=self._remat_contexts)
+                              context_fn=lambda: self._remat_contexts(
+                                  masks, state))
         return self._forward(x)
 
     def _forward(self, x):
@@ -341,19 +450,31 @@ class DenseBlock(nn.Module):
                 moments.append(batch_moments(g, self.stats_group))
         return torch.cat(groups, dim=1)
 
-    def _remat_contexts(self):
-        return contextlib.nullcontext(), self._stats_frozen()
+    def _remat_contexts(self, masks, state):
+        return contextlib.nullcontext(), self._recomputing(masks, state)
 
     @contextlib.contextmanager
-    def _stats_frozen(self):
+    def _recomputing(self, masks, state):
+        """The recomputation (in the backward pass, after the step's
+        ``dropout_masks`` block may have ended) folds no running
+        statistics and, with the step's masks, draws the forward's masks
+        again."""
         norms = [m for m in self.modules() if isinstance(m, BatchNorm2d)]
+        layers = list(self.children())
+        before = [m.masks for m in layers]
         for m in norms:
             m.fold_stats = False
+        for m in layers:
+            m.masks = masks
         try:
-            yield
+            with (contextlib.nullcontext() if masks is None
+                  else masks.replay(state)):
+                yield
         finally:
             for m in norms:
                 m.fold_stats = True
+            for m, b in zip(layers, before):
+                m.masks = b
 
 
 class Transition(nn.Module):
@@ -374,6 +495,7 @@ class Transition(nn.Module):
         self.down = down
         self.bottleneck = bottleneck
         self.drop_rate = drop_rate
+        self.masks: MaskSource | None = None
         self.upsample = upsample
         self.norm1 = BatchNorm2d(in_features)
         if not bottleneck:
@@ -394,9 +516,7 @@ class Transition(nn.Module):
             x = F.relu(self.norm2(x))
             x = self.conv2(x) if self.down else self.conv2.upsampled(
                 x, self.upsample)
-        if self.drop_rate > 0:
-            x = F.dropout(x, self.drop_rate, self.training)
-        return x
+        return _dropout(self, x)
 
 
 class LastDecoding(nn.Module):
@@ -407,6 +527,7 @@ class LastDecoding(nn.Module):
                  drop_rate: float = 0.0, upsample: str = "nearest"):
         super().__init__()
         self.drop_rate = drop_rate
+        self.masks: MaskSource | None = None
         self.upsample = upsample
         self.norm1 = BatchNorm2d(in_features)
         self.conv1 = _conv(in_features, in_features // 2, 3, padding=1)
@@ -416,9 +537,7 @@ class LastDecoding(nn.Module):
         self.conv3 = _conv(in_features // 4, out_channels, 5, padding=2)
 
     def forward(self, x):
-        x = self.conv1(F.relu(self.norm1(x)))
-        if self.drop_rate > 0:
-            x = F.dropout(x, self.drop_rate, self.training)
+        x = _dropout(self, self.conv1(F.relu(self.norm1(x))))
         x = self.conv2.upsampled(F.relu(self.norm2(x)), self.upsample)
         return self.conv3(F.relu(self.norm3(x)))
 

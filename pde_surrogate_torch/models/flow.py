@@ -6,6 +6,11 @@ class with the same name, and submodules named after the flax variable tree
 ``split.latent_encoder.conv2d.conv``, ...), so that
 ``utils/from_jax.glow_state_dict_from_jax`` moves weights by name.
 
+* On a row block of a data x space mesh (``parallel.mesh.replicate``)
+  the convs are codec ``Conv2d``s with their row form, ``Squeeze`` routes
+  rows between the space ranks, ActNorm's data init reads the group's
+  moments, and every logdet and log-density is this block's partial sum
+  (ActNorm's and the 1x1 convs' count the block's h w pixels).
 * Logdets are returned values.  The invertible 1x1 convs return
   +log|det(applied)| forward and -log|det(applied)| in reverse; the affine
   coupling returns +sum(log scale) in both directions; ``Split`` adds the
@@ -26,15 +31,18 @@ import math
 import re
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .codec import BatchNorm2d, DenseLayer
+from ..parallel.halo import RowShard
+from .codec import BatchNorm2d, Conv2d, DenseLayer, batch_moments
 
 __all__ = ["ActNorm", "InvConv1x1", "InvConv1x1LU", "Conv2dZeros",
            "DenseCoupling", "WideCoupling", "AffineCouplingLayer",
            "RevLayer", "FirstRevLayer", "Squeeze", "GaussianDiag",
            "gaussian_diag", "LatentEncoder", "Split", "RevBlock",
+           "squeeze_routes", "squeeze_rows_chunks", "squeeze_rows_assemble",
            "FirstRevBlock", "straight_through_clamp",
            "actnorm_init_from_input", "actnorm_module_paths", "reset_flow_"]
 
@@ -67,6 +75,7 @@ class ActNorm(nn.Module):
         self.return_logdet = return_logdet
         self.weight = nn.Parameter(torch.ones(in_features))
         self.bias = nn.Parameter(torch.zeros(in_features))
+        self.stats_group = None     # the data init's moments over a mesh
 
     def forward(self, x, reverse: bool = False):
         w, b = self.weight[:, None, None], self.bias[:, None, None]
@@ -81,9 +90,18 @@ class ActNorm(nn.Module):
 @torch.no_grad()
 def actnorm_init_from_input(norm: ActNorm, x: torch.Tensor) -> None:
     """weight = 1/std, bias = -mean/std of the recorded input per channel
-    (JAX flow.py:88-121): std Bessel-corrected, plus 1e-6."""
-    mean = x.mean(dim=(0, 2, 3))
-    std = x.std(dim=(0, 2, 3), unbiased=True) + 1e-6
+    (JAX flow.py:88-121): std Bessel-corrected, plus 1e-6.  With the
+    norm's ``stats_group`` (a replica, ``parallel.mesh.replicate``) ``x``
+    is this rank's part of the batch, equal in size on every rank, and
+    the moments are the whole group's (``codec.batch_moments``)."""
+    if norm.stats_group is None:
+        mean = x.mean(dim=(0, 2, 3))
+        std = x.std(dim=(0, 2, 3), unbiased=True) + 1e-6
+    else:
+        mean, var = batch_moments(x, norm.stats_group)
+        count = x.numel() // x.shape[1] * dist.get_world_size(
+            norm.stats_group)
+        std = torch.sqrt(var * (count / (count - 1))) + 1e-6
     norm.weight.copy_(1.0 / std)
     norm.bias.copy_(-(mean / std))
 
@@ -196,7 +214,7 @@ class Conv2dZeros(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.conv = Conv2d(in_channels, out_channels, 3, padding=1)
         self.scale = nn.Parameter(torch.zeros(out_channels))
         self.reset_parameters()
 
@@ -237,9 +255,9 @@ class WideCoupling(nn.Module):
 
     def __init__(self, in_features: int, out_features: int, width: int = 128):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_features, width, 3, padding=1, bias=False)
+        self.conv1 = Conv2d(in_features, width, 3, padding=1, bias=False)
         self.norm1 = ActNorm(width, return_logdet=False)
-        self.conv2 = nn.Conv2d(width, width, 1, bias=False)
+        self.conv2 = Conv2d(width, width, 1, bias=False)
         self.norm2 = ActNorm(width, return_logdet=False)
         self.conv3 = Conv2dZeros(width, out_features)
 
@@ -313,6 +331,98 @@ class FirstRevLayer(nn.Module):
         return self.coupling(x, cond, reverse=reverse)
 
 
+def squeeze_routes(f: int, size: int, index: int, reverse: bool = False):
+    """Where the reference-order squeeze sends and finds the row chunks of
+    block ``index`` of ``size`` (a field split along H), by ``factor`` f.
+
+    The reference squeeze gathers the f coarse tiles of H/f rows into
+    channels.  Forward: block r cuts its h rows into f chunks of h/f
+    rows, chunk k being the (f r + k)-th of the field's f P; chunk m is
+    row block m mod P of tile m // P, so it goes to block m mod P as that
+    tile, and block q takes tile s1 from chunk s1 P + q.  ``reverse`` goes
+    back.  Returns ``(sends, takes)``: ``sends[k] = (block, slot)``, where
+    this block's chunk k goes and in which slot there; ``takes[j] =
+    (block, chunk)``, whose chunk fills this block's slot j."""
+    if reverse:
+        sends = [((s1 * size + index) // f, (s1 * size + index) % f)
+                 for s1 in range(f)]
+        takes = [((f * index + k) % size, (f * index + k) // size)
+                 for k in range(f)]
+    else:
+        sends = [((f * index + k) % size, (f * index + k) // size)
+                 for k in range(f)]
+        takes = [((s1 * size + index) // f, (s1 * size + index) % f)
+                 for s1 in range(f)]
+    return sends, takes
+
+
+class _AllToAll(torch.autograd.Function):
+    """``dist.all_to_all_single`` along dim 0, ``in_splits`` rows to each
+    rank and ``out_splits`` from each; backward sends the gradient the
+    way back (a permutation's inverse)."""
+
+    @staticmethod
+    def forward(ctx, x, in_splits, out_splits, group):
+        ctx.splits, ctx.group = (in_splits, out_splits), group
+        out = x.new_empty((sum(out_splits),) + x.shape[1:])
+        dist.all_to_all_single(out, x.contiguous(), out_splits, in_splits,
+                               group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        in_splits, out_splits = ctx.splits
+        grad = g.new_empty((sum(in_splits),) + g.shape[1:])
+        dist.all_to_all_single(grad, g.contiguous(), in_splits, out_splits,
+                               group=ctx.group)
+        return grad, None, None, None
+
+
+def _route_chunks(chunks: torch.Tensor, rows: RowShard, f: int,
+                  reverse: bool) -> torch.Tensor:
+    """Send chunk k of ``chunks`` (f, ...) where ``squeeze_routes`` says,
+    in one all-to-all over the space group; returns the chunks this block
+    takes, (f, ...) in slot order.  The all-to-all orders what a rank
+    sends by destination and what it receives by source; one peer's
+    chunks keep their order, which is that of their slots."""
+    sends, takes = squeeze_routes(f, rows.size, rows.index, reverse)
+    order = sorted(range(f), key=lambda k: sends[k][0])
+    got = sorted(range(f), key=lambda j: takes[j][0])
+    peers = range(rows.size)
+    out = _AllToAll.apply(chunks[order],
+                          [sum(d == r for d, _ in sends) for r in peers],
+                          [sum(s == r for s, _ in takes) for r in peers],
+                          rows.group)
+    return out[[got.index(j) for j in range(f)]]
+
+
+def squeeze_rows_chunks(x: torch.Tensor, f: int, reverse: bool
+                        ) -> torch.Tensor:
+    """The f chunks (f, B, C', h', W') that a row block of the
+    reference-order squeeze's input sends: forward, its h rows cut into f
+    row chunks; ``reverse``, the f coarse tiles of its channels."""
+    b, c, h, w = x.shape
+    if reverse:
+        cf = c // (f * f)
+        return (x.reshape(b, cf, f, f, h, w).permute(2, 0, 1, 4, 3, 5)
+                .reshape(f, b, cf, h, f * w))
+    if h % f or w % f:
+        raise ValueError(f"squeeze needs a block's H and W divisible by {f}")
+    return x.reshape(b, c, f, h // f, w).movedim(2, 0)
+
+
+def squeeze_rows_assemble(chunks: torch.Tensor, f: int, reverse: bool
+                          ) -> torch.Tensor:
+    """This block's output from the f chunks it takes, in slot order:
+    forward, the tiles s1 (f, B, C, h/f, W) stacked into channels;
+    ``reverse``, the row chunks k (f, B, C, h', W) stacked along H."""
+    _, b, c, h, w = chunks.shape
+    if reverse:
+        return chunks.movedim(0, 2).reshape(b, c, f * h, w)
+    return (chunks.reshape(f, b, c, h, f, w // f).permute(1, 2, 0, 4, 3, 5)
+            .reshape(b, c * f * f, h, w // f))
+
+
 class Squeeze(nn.Module):
     """Space-to-depth by ``factor`` (JAX flow.py:374-420), NCHW.
 
@@ -320,6 +430,12 @@ class Squeeze(nn.Module):
     subpixel (fy, fx) — ``F.pixel_unshuffle``.  ``order='reference'``: the
     reference's layout, whose channel c*f^2 + s1*f + s2 holds the coarse
     tile (s1, s2) of the H/f x W/f grid.
+
+    On a row block (``rows``, set by ``parallel.mesh.replicate``) the
+    subpixel order is row-local (each block's rows a multiple of f); the
+    reference order is a fixed permutation of row chunks among the space
+    ranks (``squeeze_routes``): each rank sends and receives one block's
+    worth, in one all-to-all whose backward is the inverse permutation.
     """
 
     def __init__(self, factor: int = 2, order: str = "subpixel"):
@@ -329,6 +445,7 @@ class Squeeze(nn.Module):
                              f"'reference', got {order!r}")
         self.factor = factor
         self.order = order
+        self.rows: RowShard | None = None
 
     def forward(self, x, reverse: bool = False):
         f = self.factor
@@ -337,6 +454,10 @@ class Squeeze(nn.Module):
         b, c, h, w = x.shape
         if self.order == "subpixel":
             return F.pixel_shuffle(x, f) if reverse else F.pixel_unshuffle(x, f)
+        if self.rows is not None:
+            chunks = _route_chunks(squeeze_rows_chunks(x, f, reverse),
+                                   self.rows, f, reverse)
+            return squeeze_rows_assemble(chunks, f, reverse)
         if reverse:
             cf = c // (f * f)
             x = x.reshape(b, cf, f, f, h, w).permute(0, 1, 2, 4, 3, 5)

@@ -11,6 +11,11 @@ pyramid of the permeability x.  Submodules are named after the flax tree
 * Noise comes from an explicit ``torch.Generator`` (``create_noise``) or is
   passed as ``eps_list``: one (B, C, H, W) standard normal per latent,
   splits bottom-up, top latent last (``glow_z_shapes`` order).
+* On a data x space mesh (``parallel.mesh.replicate``) every conv of the
+  encoder and the flow (codec ``Conv2d``s, the biased ``in_conv`` and
+  ``Conv2dZeros`` among them) runs on this rank's row block at every
+  scale, the squeezes take the rows (``flow.Squeeze``), and every
+  log-density and logdet is this rank's partial sum over its rows.
 * ``sample`` runs the encoder once.  In eval mode it folds up to
   ``max_fold`` fields of the sample axis into the batch (exact: eval-mode
   BatchNorm is per sample); in train mode it loops over the samples, as the
@@ -24,7 +29,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from .codec import DenseBlock, DenseLayer, Transition
+from .codec import Conv2d, DenseBlock, DenseLayer, Transition
 from .flow import (Conv2dZeros, FirstRevBlock, GaussianDiag, RevBlock,
                    reset_flow_)
 
@@ -75,7 +80,7 @@ class DenseBlockInput(nn.Module):
     def __init__(self, in_channels: int, num_layers: int, init_features: int,
                  growth_rate: int, drop_rate: float = 0.0):
         super().__init__()
-        self.in_conv = nn.Conv2d(in_channels, init_features - 1, 3, padding=1)
+        self.in_conv = Conv2d(in_channels, init_features - 1, 3, padding=1)
         nf = in_channels + init_features - 1
         self.layers = []
         for i in range(num_layers - 1):

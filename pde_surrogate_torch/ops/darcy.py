@@ -37,11 +37,13 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-from ..solvers.fd_darcy import (_apply_operator, _dirichlet_lift,
-                                _face_conductivities, _face_fluxes,
-                                _face_kx_ky, _faces_to_nodes, _interior_mask,
-                                _laplacian)
 from ..parallel.halo import RowShard, exchange_rows, with_halo
+from ..parallel.mesh import all_reduce_sum
+from ..solvers.fd_darcy import (_at_walls, _dirichlet_lift,
+                                _face_conductivities, _face_fluxes,
+                                _faces_to_nodes, _interior_mask, _laplacian,
+                                _wall_rows)
+from ..utils.metrics import field_sum
 from .filters import SobelFilter
 
 __all__ = ["conv_constitutive_constraint",
@@ -71,6 +73,14 @@ def _mean(t: torch.Tensor, rows: RowShard | None) -> torch.Tensor:
     if rows is None:
         return torch.mean(t)
     return torch.sum(t) / (t.numel() * rows.size)
+
+
+def _wall_square_sum(t: torch.Tensor, rows: RowShard | None
+                     ) -> torch.Tensor:
+    """The sum of t^2 over the rows of t (..., h, n) on the top and bottom
+    walls: on a row block, those it holds (``solvers/fd_darcy._wall_rows``)."""
+    return sum((torch.sum(t[..., r, :] ** 2)
+                for r in _wall_rows(rows, t.shape[-2])), t.new_zeros(()))
 
 
 def conv_constitutive_constraint(input: torch.Tensor, output: torch.Tensor,
@@ -135,13 +145,11 @@ def conv_continuity_constraint(output: torch.Tensor, sobel: SobelFilter,
     rows = sobel.rows
     if use_tb:
         return _mean(div, rows)
-    if rows is None:
-        return torch.mean(div[:, :, 1:-1, :])
     h = div.shape[-2]
-    lo = 1 if rows.index == 0 else 0
-    hi = h - 1 if rows.index == rows.size - 1 else h
-    count = div[:, :, :1].numel() * (rows.size * h - 2)
-    return torch.sum(div[:, :, lo:hi, :]) / count
+    top, bottom = _at_walls(rows)
+    field_rows = h * (1 if rows is None else rows.size)
+    count = div[:, :, :1].numel() * (field_rows - 2)
+    return torch.sum(div[:, :, int(top):h - int(bottom), :]) / count
 
 
 def conv_boundary_condition(output: torch.Tensor,
@@ -154,15 +162,8 @@ def conv_boundary_condition(output: torch.Tensor,
     left = output[:, 0, :, 0]
     right = output[:, 0, :, -1]
     loss_dirichlet = _mean((left - 1.0) ** 2, rows) + _mean(right ** 2, rows)
-    if rows is None:
-        return loss_dirichlet, torch.mean(output[:, 2, [0, -1], :] ** 2)
-    h = output.shape[-2]
-    walls = ([0] if rows.index == 0 else []) + (
-        [h - 1] if rows.index == rows.size - 1 else [])
-    top_down_flux = output[:, 2, torch.tensor(walls, dtype=torch.long,
-                                              device=output.device), :]
-    count = output[:, 2, :2, :].numel()
-    return loss_dirichlet, torch.sum(top_down_flux ** 2) / count
+    return loss_dirichlet, (_wall_square_sum(output[:, 2], rows)
+                            / output[:, 2, :2, :].numel())
 
 
 def mixed_residual_loss(input: torch.Tensor, output: torch.Tensor,
@@ -202,27 +203,45 @@ def mixed_residual_loss(input: torch.Tensor, output: torch.Tensor,
     return loss, (pde, dirichlet, neumann)
 
 
-def _flux_mismatch(sigma: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor
-                   ) -> torch.Tensor:
-    """mean((sigma - face fluxes averaged to nodes)^2), sigma (B, 2, n, n):
-    the label convention of ``solvers/fd_darcy.darcy_fields``."""
-    s1_ref, s2_ref = _faces_to_nodes(fx, fy)
-    return torch.mean((sigma - torch.stack([s1_ref, s2_ref], dim=1)) ** 2)
+def _halo(t: torch.Tensor, rows: RowShard | None):
+    """One row of t from each neighbour of a row block (``exchange_rows``);
+    ``(None, None)`` on the whole field."""
+    return (None, None) if rows is None else exchange_rows(t, 1, 1, rows)
 
 
-def _dirichlet_neumann(output: torch.Tensor):
+def _fv_halo(K: torch.Tensor, u: torch.Tensor, rows: RowShard | None):
+    """``((K_above, K_below), (u_above, u_below))``: one row of K and of u
+    from each neighbour of a row block, in one ``exchange_rows``."""
+    if rows is None:
+        return (None, None), (None, None)
+    above, below = exchange_rows(torch.stack([K, u], 1), 1, 1, rows)
+    return (above[:, 0], below[:, 0]), (above[:, 1], below[:, 1])
+
+
+def _flux_mismatch(sigma: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor,
+                   rows: RowShard | None = None) -> torch.Tensor:
+    """mean((sigma - face fluxes averaged to nodes)^2), sigma (B, 2, h, n)
+    and the fluxes of ``solvers/fd_darcy._face_fluxes`` averaged as the
+    labels are (``_faces_to_nodes``)."""
+    ref = torch.stack(_faces_to_nodes(fx, fy, rows), dim=1)
+    return _mean((sigma - ref) ** 2, rows)
+
+
+def _dirichlet_neumann(output: torch.Tensor, rows: RowShard | None = None):
     """The FV objectives' boundary terms: u = 1 / u = 0 on the left / right
-    columns, and sigma2 on the top and bottom rows (logged only)."""
+    columns, and sigma2 on the top and bottom rows (logged only); on a row
+    block the partial sums, the wall rows on the edge blocks."""
     u = output[:, 0]
-    dirichlet = (torch.mean((u[..., :, 0] - 1.0) ** 2)
-                 + torch.mean(u[..., :, -1] ** 2))
-    neumann = (torch.mean(output[:, 2, 0, :] ** 2)
-               + torch.mean(output[:, 2, -1, :] ** 2))
+    dirichlet = (_mean((u[..., :, 0] - 1.0) ** 2, rows)
+                 + _mean(u[..., :, -1] ** 2, rows))
+    neumann = (_wall_square_sum(output[:, 2], rows)
+               / output[:, 2, 0, :].numel())
     return dirichlet, neumann
 
 
 def fv_mixed_residual_loss(input: torch.Tensor, output: torch.Tensor,
-                           weight_bound: float = 10.0):
+                           weight_bound: float = 10.0,
+                           rows: RowShard | None = None, halo=None):
     """Finite-volume mixed residual, the exactly identifiable label-free
     objective (JAX ops/darcy.py:176-249; no reference counterpart).
 
@@ -237,21 +256,26 @@ def fv_mixed_residual_loss(input: torch.Tensor, output: torch.Tensor,
     loss = 0 exactly when u is the FV solution and the fluxes are its
     labels.  Returns ``(loss, (pde, dirichlet, neumann))``; neumann is
     logged only (the zero walls enter through the flux reference).
+
+    On a row block (``rows``) ``input`` and ``output`` are the block's
+    rows, ``halo`` the ``((K_above, K_below), (u_above, u_below))`` rows
+    that the vertical faces read (exchanged with the neighbouring ranks
+    when None), and the terms are this rank's partial sums.
     """
     K = input[:, 0]
     u = output[:, 0]
     h = 1.0 / (K.shape[-1] - 1)
-    Kx, Ky = _face_kx_ky(K)
-    fx, fy = _face_fluxes(Kx, Ky, u)
+    k_halo, u_halo = _fv_halo(K, u, rows) if halo is None else halo
+    kx, fx, ky, fy = _face_fluxes(K, u, k_halo, u_halo, rows)
     # missing boundary faces contribute 0: the zero-flux mirror walls
     div = (F.pad(fx, (0, 1)) - F.pad(fx, (1, 0))
-           + F.pad(fy, (0, 0, 0, 1)) - F.pad(fy, (0, 0, 1, 0))) / h
-    diag = (F.pad(Kx, (0, 1)) + F.pad(Kx, (1, 0))
-            + F.pad(Ky, (0, 0, 0, 1)) + F.pad(Ky, (0, 0, 1, 0))) / (h * h)
+           + fy[..., 1:, :] - fy[..., :-1, :]) / h
+    diag = (F.pad(kx, (0, 1)) + F.pad(kx, (1, 0))
+            + ky[..., 1:, :] + ky[..., :-1, :]) / (h * h)
     r = div / torch.clamp(diag, min=1e-30)
-    residual = torch.mean(r[..., :, 1:-1] ** 2)
-    flux_consistency = _flux_mismatch(output[:, 1:], fx, fy)
-    dirichlet, neumann = _dirichlet_neumann(output)
+    residual = _mean(r[..., :, 1:-1] ** 2, rows)
+    flux_consistency = _flux_mismatch(output[:, 1:], fx, fy, rows)
+    dirichlet, neumann = _dirichlet_neumann(output, rows)
     pde = residual + flux_consistency
     loss = pde + weight_bound * dirichlet
     return loss, (pde, dirichlet, neumann)
@@ -265,7 +289,9 @@ def _resolve_n_cg(n_cg: int | None, n: int) -> int:
 
 
 def _cg_pressure_errors(input: torch.Tensor, output: torch.Tensor,
-                        n_cg: int | None = None) -> torch.Tensor:
+                        n_cg: int | None = None,
+                        rows: RowShard | None = None,
+                        k_halo=None) -> torch.Tensor:
     """Per-field CG-recovered pressure error e_k, (B, n, n).
 
     ``n_cg`` Jacobi-PCG iterations on A(K) e = r(u_hat), r the FV residual
@@ -276,32 +302,47 @@ def _cg_pressure_errors(input: torch.Tensor, output: torch.Tensor,
     autograd through the unrolled loop is the reverse mode of JAX's
     ``fori_loop``.  p and e stay zero on the Dirichlet columns, so the
     loop's matvec skips the input mask of ``A(v * mask) * mask``.
+
+    On a row block (``rows``; ``k_halo`` one row of K from each neighbour,
+    exchanged when None) e is the block's rows: every matvec exchanges one
+    row of its input each side (``parallel.halo.exchange_rows``, under
+    autograd) for the row-block Laplacian (``solvers/fd_darcy.
+    _laplacian``), and each per-field dot is this block's partial sum
+    all-reduced over the space group (``parallel.mesh.all_reduce_sum``,
+    differentiable), in the one-process order: the first r.z, then p.Ap
+    and r.z in every iteration, never fused.
     """
     K = input[:, 0]
     u = output[:, 0]
     n = K.shape[-1]
     n_cg = _resolve_n_cg(n_cg, n)
-    faces = _face_conductivities(K)
-    aE, aW, aN, aS = faces
-    mask = _interior_mask(n, K.dtype, K.device)
+    mask = _interior_mask(n, K.dtype, K.device)[:K.shape[-2]]
     neg_mask = -mask
-    u_d = _dirichlet_lift(n, K)
-    b = -_apply_operator(u_d, faces) * mask
-    inv_diag = mask / torch.clamp(aE + aW + aN + aS, min=1e-30)
+    u_d = _dirichlet_lift(n, K)[:K.shape[-2]]
 
-    def matvec(v):
-        return _laplacian(v, faces) * neg_mask
+    if k_halo is None:
+        k_halo = _halo(K, rows)
+    faces = _face_conductivities(K, *k_halo, rows)
+
+    def lap(v, halo=None):
+        return _laplacian(v, faces, *(halo or _halo(v, rows)))
 
     def dot(a, c):
-        return torch.sum(a * c, dim=(-2, -1), keepdim=True)
+        d = torch.sum(a * c, dim=(-2, -1), keepdim=True)
+        return d if rows is None else all_reduce_sum(d, rows.group)
 
-    r = (b - matvec((u - u_d) * mask)) * mask
+    # b = -A(u_d) on the interior columns; u_d is the same in every row, so
+    # its halo rows are its own first row
+    b = lap(u_d, (u_d[:1], u_d[:1])) * mask
+    r = (b - lap((u - u_d) * mask) * neg_mask) * mask
+    aE, aW, aN, aS = faces
+    inv_diag = mask / torch.clamp(aE + aW + aN + aS, min=1e-30)
     e = torch.zeros_like(r)
     z = r * inv_diag
     p = z
     rz = dot(r, z)
     for _ in range(n_cg):
-        ap = matvec(p)
+        ap = lap(p) * neg_mask
         alpha = rz / (dot(p, ap) + 1e-30)
         e = e + alpha * p
         r = r - alpha * ap
@@ -313,14 +354,16 @@ def _cg_pressure_errors(input: torch.Tensor, output: torch.Tensor,
 
 
 def fv_cg_u_error(input: torch.Tensor, output: torch.Tensor,
-                  n_cg: int | None = None) -> torch.Tensor:
+                  n_cg: int | None = None,
+                  rows: RowShard | None = None) -> torch.Tensor:
     """mean(e_k^2), the CG-recovered pressure-error estimate: the u term of
-    ``fv_cg_error_loss`` and the u anchor of the ``sobel_fvcg`` hybrid."""
-    return torch.mean(_cg_pressure_errors(input, output, n_cg) ** 2)
+    ``fv_cg_error_loss`` and the u anchor of the ``sobel_fvcg`` hybrid (on
+    a row block, this rank's partial sum)."""
+    return _mean(_cg_pressure_errors(input, output, n_cg, rows) ** 2, rows)
 
 
 def fv_cg_anchors(input: torch.Tensor, output: torch.Tensor,
-                  n_cg: int | None = None):
+                  n_cg: int | None = None, rows: RowShard | None = None):
     """Pressure and flux anchors from the CG-corrected pressure:
     ``(err_u, err_flux)`` with err_u = mean(e_k^2) and err_flux the flux
     channels against the conservative face fluxes of u_hat + e_k, averaged
@@ -330,26 +373,35 @@ def fv_cg_anchors(input: torch.Tensor, output: torch.Tensor,
     exact values: e_k is zero there, and u_hat's own boundary error would
     otherwise pollute the boundary-adjacent flux target through the 1/h
     face gradient.
+
+    On a row block (``rows``) both are this rank's partial sums: one row
+    of K is exchanged each side for the faces, and the corrected pressure
+    takes its own halo rows for its face fluxes.
     """
     K = input[:, 0]
     n = K.shape[-1]
-    e = _cg_pressure_errors(input, output, n_cg)
-    err_u = torch.mean(e ** 2)
-    u_corr = ((output[:, 0] + e) * _interior_mask(n, K.dtype, K.device)
-              + _dirichlet_lift(n, K))
-    fx, fy = _face_fluxes(*_face_kx_ky(K), u_corr)
-    return err_u, _flux_mismatch(output[:, 1:], fx, fy)
+    k_halo = _halo(K, rows)
+    e = _cg_pressure_errors(input, output, n_cg, rows, k_halo)
+    err_u = _mean(e ** 2, rows)
+    u_corr = ((output[:, 0] + e)
+              * _interior_mask(n, K.dtype, K.device)[:K.shape[-2]]
+              + _dirichlet_lift(n, K)[:K.shape[-2]])
+    _, fx, _, fy = _face_fluxes(K, u_corr, k_halo, _halo(u_corr, rows),
+                                rows)
+    return err_u, _flux_mismatch(output[:, 1:], fx, fy, rows)
 
 
 def fv_cg_error_loss(input: torch.Tensor, output: torch.Tensor,
-                     weight_bound: float = 10.0, n_cg: int | None = None):
+                     weight_bound: float = 10.0, n_cg: int | None = None,
+                     rows: RowShard | None = None):
     """The CG-preconditioned error objective (JAX ops/darcy.py:389-433):
     pde = err_u + err_flux of ``fv_cg_anchors`` (n_cg PCG iterations on
     the FV residual inside the loss, so the objective sees the smooth error
     modes the raw residual cannot), plus ``weight_bound`` x dirichlet.
-    Returns ``(loss, (pde, dirichlet, neumann))``."""
-    err_u, flux_consistency = fv_cg_anchors(input, output, n_cg)
-    dirichlet, neumann = _dirichlet_neumann(output)
+    Returns ``(loss, (pde, dirichlet, neumann))``; on a row block
+    (``rows``) this rank's partial sums."""
+    err_u, flux_consistency = fv_cg_anchors(input, output, n_cg, rows)
+    dirichlet, neumann = _dirichlet_neumann(output, rows)
     pde = err_u + flux_consistency
     loss = pde + weight_bound * dirichlet
     return loss, (pde, dirichlet, neumann)
@@ -362,7 +414,8 @@ def reconstruct_pressure(input: torch.Tensor, output: torch.Tensor
     u(x) = 1 - int_0^x sigma1_hat / K: trapezoid cumulative integral along x
     from both edges, blended linearly toward the nearer Dirichlet anchor.
     The spacing is 1/n, not 1/(n-1), because the Sobel operators scale by
-    the image size n: a self-consistent net then scores exactly 0.
+    the image size n: a self-consistent net then scores exactly 0.  Each
+    row is integrated alone, so a row block gives its own rows.
     """
     K = input[:, 0]
     n = output.shape[-1]
@@ -377,14 +430,16 @@ def reconstruct_pressure(input: torch.Tensor, output: torch.Tensor
     return (1.0 - w) * u_left + w * u_right
 
 
-def flux_pressure_consistency(input: torch.Tensor, output: torch.Tensor
-                              ) -> torch.Tensor:
+def flux_pressure_consistency(input: torch.Tensor, output: torch.Tensor,
+                              rows: RowShard | None = None) -> torch.Tensor:
     """Label-free drift metric: batch mean of the rel-L2 between the net's u
-    and the flux-integrated u (``reconstruct_pressure``)."""
+    and the flux-integrated u (``reconstruct_pressure``); on a row block
+    (``rows``) each sample's two norms are summed over the space group
+    before the square roots."""
     u_hat = output[:, 0]
     u_rec = reconstruct_pressure(input, output)
-    num = torch.sqrt(torch.sum((u_hat - u_rec) ** 2, dim=(1, 2)))
-    den = torch.sqrt(torch.sum(u_rec ** 2, dim=(1, 2)))
+    num = torch.sqrt(field_sum((u_hat - u_rec) ** 2, rows))
+    den = torch.sqrt(field_sum(u_rec ** 2, rows))
     return torch.mean(num / den)
 
 

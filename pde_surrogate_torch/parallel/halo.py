@@ -139,8 +139,8 @@ def _wgrad_in_float64(weight: torch.Tensor, stride: int) -> bool:
 
 
 class _RowConv(torch.autograd.Function):
-    """``F.conv2d(x, weight, None, stride, (0, padding))`` on a
-    halo-padded block, whose weight gradient is reduced in float64 where
+    """``F.conv2d(with_halo(x, above, below), weight, None, stride,
+    (0, padding))``, whose weight gradient is reduced in float64 where
     ``_wgrad_in_float64`` says so: in float64 no algorithm loses that
     much, and the one rounding to the weight's dtype keeps the block path
     as close to the exact gradient as the whole field's.  The forward and
@@ -148,42 +148,57 @@ class _RowConv(torch.autograd.Function):
     copies hold twice the float32 they copy while the reduction runs, but
     they replace the Winograd algorithms' workspace: on an H100 a 1x1
     data x space step of DenseED [6,8,6]/16/48 at 64^2, batch 32, peaks
-    at 1473 MiB this way and at 1831 MiB with cuDNN's float32 weight
-    gradient (``tools/row_block_wgrad_probe.py``)."""
+    at 1286 MiB this way and at 1620 MiB with cuDNN's float32 weight
+    gradient (``tools/row_block_memory_probe.py``).
+
+    It saves the block and its halo rows apart and joins them again in
+    backward: the block is the tensor that the layer before keeps anyway
+    (a plain conv saves it too), where a saved halo-padded copy holds one
+    more activation per conv until the backward: on the same card the
+    1x1 mesh step of the cGlow (enc [3,4,4], flow [6,6,6], 64^2, batch
+    32) saved 1932 MiB more that way and peaked at 8372 MiB, against
+    6509 MiB now and 6260 MiB on the data mesh alone."""
 
     @staticmethod
-    def forward(ctx, x, weight, stride: int, padding: int):
-        ctx.save_for_backward(x, weight)
+    def forward(ctx, x, above, below, weight, stride: int, padding: int):
+        ctx.save_for_backward(x, above, below, weight)
         ctx.conv = (stride, (0, padding))
-        return F.conv2d(x, weight, None, stride, (0, padding))
+        return F.conv2d(with_halo(x, above, below), weight, None, stride,
+                        (0, padding))
 
     @staticmethod
     def backward(ctx, g):
-        x, weight = ctx.saved_tensors
-        gx = gw = None
-        if ctx.needs_input_grad[0]:
-            gx = torch.nn.grad.conv2d_input(x.shape, weight, g, *ctx.conv)
-        if ctx.needs_input_grad[1]:
+        x, above, below, weight = ctx.saved_tensors
+        heights = [above.shape[-2], x.shape[-2], below.shape[-2]]
+        gx = ga = gb = gw = None
+        if any(ctx.needs_input_grad[:3]):
+            gxp = torch.nn.grad.conv2d_input(
+                x.shape[:-2] + (sum(heights), x.shape[-1]), weight, g,
+                *ctx.conv)
+            ga, gx, gb = torch.split(gxp, heights, -2)
+        if ctx.needs_input_grad[3]:
+            xp = with_halo(x, above, below)
             if _wgrad_in_float64(weight, ctx.conv[0]):
                 gw = torch.nn.grad.conv2d_weight(
-                    x.double(), weight.shape, g.double(), *ctx.conv
+                    xp.double(), weight.shape, g.double(), *ctx.conv
                 ).to(weight.dtype)
             else:
-                gw = torch.nn.grad.conv2d_weight(x, weight.shape, g,
+                gw = torch.nn.grad.conv2d_weight(xp, weight.shape, g,
                                                  *ctx.conv)
-        return gx, gw, None, None
+        return gx, ga, gb, gw, None, None
 
 
-def conv_rows(x, above, below, weight, stride: int, padding: int
-              ) -> torch.Tensor:
-    """This block's rows of ``F.conv2d(field, weight, None, stride,
+def conv_rows(x, above, below, weight, stride: int, padding: int,
+              bias=None) -> torch.Tensor:
+    """This block's rows of ``F.conv2d(field, weight, bias, stride,
     padding)``: the block with its halo (zeros at a wall, the conv's zero
-    padding) convolved without padding along H.  The block's rows must be
-    a multiple of the stride."""
+    padding) convolved without padding along H, the bias added after.
+    The block's rows must be a multiple of the stride."""
     if x.shape[-2] % stride:
         raise ValueError(f"a block of {x.shape[-2]} rows under a conv of "
                          f"stride {stride}")
-    return _RowConv.apply(with_halo(x, above, below), weight, stride, padding)
+    y = _RowConv.apply(x, above, below, weight, stride, padding)
+    return y if bias is None else y + bias[:, None, None]
 
 
 def block_operator(op: np.ndarray, index: int, size: int, extra: int = 0):
@@ -263,4 +278,5 @@ def upsample_conv_rows(x, above, below, op: torch.Tensor, weight,
     y = torch.matmul(op, with_halo(x, above, below))
     y = F.interpolate(y, size=(y.shape[-2], 2 * y.shape[-1]), mode=mode,
                       align_corners=True if mode == "bilinear" else None)
-    return _RowConv.apply(y, weight, 1, p)
+    none = y[..., :0, :]
+    return _RowConv.apply(y, none, none, weight, 1, p)

@@ -13,10 +13,11 @@ port's ``BatchNorm2d`` reduces its batch moments over the mesh once
 The 2-D ``('data', 'space')`` mesh (``dp_sp_mesh``) also splits each field's
 rows H over the space axis (``batch_space_sharding``).  Where XLA's SPMD
 partitioner inserts the conv halos, ``replicate`` hands every conv and
-upsampling of the DenseED this rank's ``RowShard``, and the convs exchange
-their halo rows point to point (``parallel/halo.py``); the BatchNorm
-moments run over the whole data x space group; the loss is this rank's
-partial sum (``ops/darcy.py``).
+upsampling of the DenseED and the cGlow this rank's ``RowShard``, and the
+convs exchange their halo rows point to point (``parallel/halo.py``); the
+BatchNorm moments run over the whole data x space group; every loss, PCG
+dot and metric is this rank's partial sum, summed over the space group
+where it is used (``ops/darcy.py``, ``utils/metrics.py``).
 """
 
 from __future__ import annotations
@@ -117,12 +118,15 @@ def row_shard(mesh: Mesh | None) -> RowShard | None:
     return RowShard(mesh.space_group, mesh.coords[1], mesh.shape[1])
 
 
-def batch_space_sharding(mesh: DataSpaceMesh):
+def batch_space_sharding(mesh: DataSpaceMesh, multiple: int = 4):
     """``shard(batch)``: this rank's block ``(B / n_data, C, H / n_space,
     W)`` of a global NCHW batch (a tensor or a tuple of them), contiguous
-    along both axes: space rank s holds rows ``[s H/P, (s+1) H/P)``.  The
-    DenseED halves the rows twice (``In_conv`` and the down transition),
-    so ``H / n_space`` must be a multiple of 4."""
+    along both axes: space rank s holds rows ``[s H/P, (s+1) H/P)``.  Each
+    rank's rows must be a multiple of ``multiple``: 4 for the DenseED,
+    which halves them twice (``In_conv`` and the down transition), and
+    ``2^(len(flow_blocks) - 1)`` for the cGlow, whose squeezes and
+    encoder halve them once per scale (1: any rows, as for the cGlow's
+    latents)."""
     (n_data, n_space), (d, s) = mesh.shape, mesh.coords
 
     def shard(batch):
@@ -132,9 +136,10 @@ def batch_space_sharding(mesh: DataSpaceMesh):
         if n % n_data:
             raise ValueError(f"batch of {n} not divisible by the mesh's "
                              f"{n_data} data ranks")
-        if h % (4 * n_space):
+        if h % (multiple * n_space):
             raise ValueError(f"H={h} over {n_space} space ranks: each "
-                             f"rank's rows must be a multiple of 4")
+                             f"rank's rows must be a multiple of "
+                             f"{multiple}")
         b, r = n // n_data, h // n_space
         return batch[d * b:(d + 1) * b, ..., s * r:(s + 1) * r, :]
 
@@ -155,9 +160,10 @@ def shard_batch(batch, mesh: Mesh):
 
 
 def _has_row_form(conv: torch.nn.Conv2d) -> bool:
-    """A conv of the port's codec (``rows``) as the DenseED builds it: no
-    bias, one group, no dilation, a square stride and padding."""
-    return (hasattr(conv, "rows") and conv.bias is None and conv.groups == 1
+    """A conv of the port's codec (``rows``) of one group, without
+    dilation, with zero padding and a square stride and padding: the
+    DenseED's and the cGlow's, biased or not."""
+    return (hasattr(conv, "rows") and conv.groups == 1
             and conv.dilation == (1, 1) and conv.padding_mode == "zeros"
             and len(set(conv.stride)) == 1 and len(set(conv.padding)) == 1)
 
@@ -165,23 +171,26 @@ def _has_row_form(conv: torch.nn.Conv2d) -> bool:
 def replicate(module: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
     """Make ``module`` a replica over ``mesh``, in place: its parameters
     and buffers take rank 0's values, and every submodule with a
-    ``stats_group`` (the port's BatchNorm2d and concat-free DenseBlock)
-    reduces its batch moments over the mesh from now on (over data x space
-    on a 2-D mesh).
+    ``stats_group`` (the port's BatchNorm2d, the concat-free DenseBlock
+    and the cGlow's ActNorm, whose data-dependent init reads the group's
+    moments) reduces its batch moments over the mesh from now on (over
+    data x space on a 2-D mesh).
 
     On a 2-D mesh every submodule with a ``rows`` attribute (the port's
-    codec ``Conv2d``, which also serves the upsampling before it) takes
-    this rank's ``RowShard``.  A module with another conv (the cGlow's, or
-    a codec ``Conv2d`` with a bias) or with dropout raises: its row-block
-    form is not ported (ROADMAP E3d)."""
+    codec ``Conv2d``, which also serves the upsampling before it, and the
+    cGlow's ``Squeeze``) takes this rank's ``RowShard``.  A conv without
+    a row-block form raises: a plain ``nn.Conv2d``, or one with groups,
+    dilation, another padding mode or a stride or padding that differs
+    between H and W."""
     rows = row_shard(mesh)
     if rows is not None:
         for name, m in module.named_modules():
-            if (isinstance(m, torch.nn.Conv2d) and not _has_row_form(m)
-                    or getattr(m, "drop_rate", 0.0) > 0):
+            if isinstance(m, torch.nn.Conv2d) and not _has_row_form(m):
                 raise NotImplementedError(
-                    f"{name or type(m).__name__} under a space mesh: only "
-                    f"the DenseED without dropout is ported (ROADMAP E3d)")
+                    f"{name or type(m).__name__} ({m!r}) has no row-block "
+                    f"form under a space mesh: only a models.codec.Conv2d "
+                    f"of one group, without dilation, with zero padding "
+                    f"and a square stride and padding")
     with torch.no_grad():
         for t in list(module.parameters()) + list(module.buffers()):
             dist.broadcast(t.data, dist.get_global_rank(mesh.group, 0),

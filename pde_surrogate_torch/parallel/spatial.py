@@ -4,9 +4,10 @@ sharded over ranks.
 Counterpart of pde_surrogate_tpu/parallel/spatial.py.  Fields are split
 along H over a ``('space',)`` mesh; rank r holds rows
 ``[r n/P, (r+1) n/P)``.  Every Jacobi-PCG iteration touches the local rows
-plus one halo row from each neighbour (``_halo_rows``, point to point), and
-each dot product is a local sum plus one all-reduce of the per-field
-partials, so the traffic per iteration is O(W) whatever H is.
+plus one halo row from each neighbour (``parallel.halo.exchange_rows``,
+point to point), and each dot product is a local sum plus one all-reduce
+of the per-field partials, so the traffic per iteration is O(W) whatever
+H is.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from ..solvers.fd_darcy import _face_conductivities, _laplacian
+from .halo import RowShard, exchange_rows
 from .mesh import Mesh, _mesh, all_gather
 
 __all__ = ["spatial_mesh", "solve_darcy_spatial", "gather_rows"]
@@ -22,37 +25,6 @@ __all__ = ["spatial_mesh", "solve_darcy_spatial", "gather_rows"]
 def spatial_mesh(n_devices: int | None = None, device="cuda") -> Mesh:
     """The ``('space',)`` mesh over every rank of the process group."""
     return _mesh(n_devices, device, "space")
-
-
-def _halo_rows(v: torch.Tensor, mesh: Mesh):
-    """``(row_above, row_below)`` of this rank's rows ``v`` (..., rows, W):
-    the last row of the rank above and the first row of the rank below,
-    exchanged point to point.
-
-    The exchange is NOT circular: rank 0 gets zeros above and the last rank
-    zeros below.  The JAX package's ``ppermute`` ring is circular, so its
-    edge shards receive the opposite edge of the domain; there, as here,
-    the halo is multiplied by the wall faces' conductivity, which is zero,
-    so both give the same solve.
-    """
-    above = torch.zeros_like(v[..., :1, :])
-    below = torch.zeros_like(v[..., :1, :])
-    rank, world, group = mesh.rank, mesh.world_size, mesh.group
-    ops = []
-    if rank > 0:
-        peer = dist.get_global_rank(group, rank - 1)
-        ops += [dist.P2POp(dist.isend, v[..., :1, :].contiguous(), peer,
-                           group),
-                dist.P2POp(dist.irecv, above, peer, group)]
-    if rank < world - 1:
-        peer = dist.get_global_rank(group, rank + 1)
-        ops += [dist.P2POp(dist.isend, v[..., -1:, :].contiguous(), peer,
-                           group),
-                dist.P2POp(dist.irecv, below, peer, group)]
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-    return above, below
 
 
 def solve_darcy_spatial(K: torch.Tensor, mesh: Mesh, n_iter: int = 2000
@@ -66,7 +38,16 @@ def solve_darcy_spatial(K: torch.Tensor, mesh: Mesh, n_iter: int = 2000
     bottom walls (kN = 0 on global row 0, kS = 0 on global row n-1), the
     Dirichlet columns (u = 1 left, 0 right) eliminated, Jacobi-PCG for a
     fixed ``n_iter`` with per-field alpha and beta and the JAX package's
-    1e-30 guards.
+    1e-30 guards.  The faces and the matvec are the row-block ones of
+    ``solvers/fd_darcy`` (``_face_conductivities``, ``_laplacian``),
+    shared with the in-loss PCG on a data x space
+    mesh; the halo rows come from ``parallel.halo.exchange_rows``.
+
+    The exchange is NOT circular: rank 0 gets zeros above and the last
+    rank zeros below.  The JAX package's ``ppermute`` ring is circular, so
+    its edge shards receive the opposite edge of the domain; there, as
+    here, the halo is multiplied by the wall faces' conductivity, which is
+    zero, so both give the same solve.
     """
     n = K.shape[-1]
     P = mesh.world_size
@@ -76,37 +57,17 @@ def solve_darcy_spatial(K: torch.Tensor, mesh: Mesh, n_iter: int = 2000
     rows = K.shape[-2] // P
     r0 = mesh.rank * rows
     K_local = K[..., r0:r0 + rows, :].to(mesh.device)
-
-    def harm(a, b):
-        return 2.0 * a * b / (a + b)
-
-    def shifted(v, above, below):
-        v_up = torch.cat([above, v[..., :-1, :]], dim=-2)
-        v_dn = torch.cat([v[..., 1:, :], below], dim=-2)
-        return v_up, v_dn
-
-    k_up, k_dn = shifted(K_local, *_halo_rows(K_local, mesh))
-    grow = r0 + torch.arange(rows, device=mesh.device)[:, None]
-    kN = torch.where(grow == 0, 0.0, harm(K_local, k_up))
-    kS = torch.where(grow == n - 1, 0.0, harm(K_local, k_dn))
-    kE = torch.zeros_like(K_local)
-    kE[..., :, :-1] = harm(K_local[..., :, :-1], K_local[..., :, 1:])
-    kW = torch.zeros_like(K_local)
-    kW[..., :, 1:] = harm(K_local[..., :, 1:], K_local[..., :, :-1])
+    shard = RowShard(mesh.group, mesh.rank, P)
+    faces = _face_conductivities(
+        K_local, *exchange_rows(K_local, 1, 1, shard), shard)
+    kE, kW, kN, kS = faces
     mask = torch.ones(n, dtype=K_local.dtype, device=mesh.device)
     mask[0] = mask[-1] = 0.0
     mask = mask.expand_as(K_local)
     inv_diag = mask / torch.clamp(kE + kW + kN + kS, min=1e-30)
 
     def matvec(v):
-        v_up, v_dn = shifted(v, *_halo_rows(v, mesh))
-        vE = torch.zeros_like(v)
-        vE[..., :, :-1] = v[..., :, 1:]
-        vW = torch.zeros_like(v)
-        vW[..., :, 1:] = v[..., :, :-1]
-        lap = (kE * (vE - v) + kW * (vW - v) + kN * (v_up - v)
-               + kS * (v_dn - v))
-        return -lap * mask
+        return -_laplacian(v, faces, *exchange_rows(v, 1, 1, shard)) * mask
 
     def dot(a, b):
         # per-field CG scalars: the local rows' sum, then the mesh's

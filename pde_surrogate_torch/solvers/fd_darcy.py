@@ -22,9 +22,12 @@ conductivities.
   reference's FEniCS); the face fluxes come from ``_sigma_from_grad``, a
   componentwise cubic solve with an implicit derivative.
 
-The operator helpers (``_face_conductivities``, ``_apply_operator``,
-``_interior_mask``) take fields with any leading batch dims, (..., n, n),
-and serve the in-loss PCG of ``ops/darcy`` too.
+The operator helpers (``_face_conductivities``, ``_laplacian``,
+``_face_fluxes``, ``_faces_to_nodes``, ``_interior_mask``) take fields
+with any leading batch dims, (..., n, n), or a row block (..., h, n) of a
+field split along H with one row from each neighbour, and serve the
+in-loss objectives of ``ops/darcy`` and the row-sharded solve of
+``parallel/spatial`` too.
 """
 
 from __future__ import annotations
@@ -38,40 +41,96 @@ __all__ = ["darcy_fields", "solve_darcy", "solve_darcy_batch",
            "solve_darcy_batch_fast", "solve_nonlinear_darcy"]
 
 
-def _face_kx_ky(K: torch.Tensor):
-    """Harmonic-mean conductivities of the vertical faces (..., n, n-1) and
-    the horizontal faces (..., n-1, n) of K (..., n, n)."""
-    return (_harm(K[..., :, :-1], K[..., :, 1:]),
-            _harm(K[..., :-1, :], K[..., 1:, :]))
+def _at_walls(rows) -> tuple[bool, bool]:
+    """Whether the whole field (``rows`` None) or the row block ``rows``
+    (a ``parallel.halo.RowShard``) touches the top and the bottom wall."""
+    return (rows is None or rows.index == 0,
+            rows is None or rows.index == rows.size - 1)
 
 
-def _face_fluxes(kx: torch.Tensor, ky: torch.Tensor, u: torch.Tensor):
-    """Conservative face fluxes of u (..., n, n) through the faces of
-    ``_face_kx_ky``: fx (..., n, n-1), fy (..., n-1, n)."""
-    h = 1.0 / (u.shape[-1] - 1)
-    fx = -kx * (u[..., :, 1:] - u[..., :, :-1]) / h
-    fy = -ky * (u[..., 1:, :] - u[..., :-1, :]) / h
-    return fx, fy
+def _wall_rows(rows, h: int) -> list[int]:
+    """The rows of a block of ``h`` rows (``rows``, as ``_at_walls``) on
+    the top and bottom walls."""
+    top, bottom = _at_walls(rows)
+    return ([0] if top else []) + ([h - 1] if bottom else [])
 
 
-def _face_conductivities(K: torch.Tensor):
+def _with_rows(t: torch.Tensor, above, below) -> torch.Tensor:
+    """t (..., h, n) with one row above and one below: the neighbours'
+    rows, or t's own edge rows where they are None (a wall of the whole
+    field, where the faces that read them are zero)."""
+    return torch.cat([t[..., :1, :] if above is None else above, t,
+                      t[..., -1:, :] if below is None else below], -2)
+
+
+def _vertical_faces(K: torch.Tensor, above=None, below=None, rows=None
+                    ) -> torch.Tensor:
+    """The harmonic conductivities of the h + 1 horizontal faces around a
+    row block K (..., h, n) of a field split along H (``rows``; None: the
+    whole field), from the face above its first row to the face below its
+    last; ``above`` / ``below`` are one row of K from each neighbour
+    (None or anything at a wall).  A face through the top or bottom wall
+    is zero: the built-in zero flux."""
+    kp = _with_rows(K, above, below)
+    ky = _harm(kp[..., :-1, :], kp[..., 1:, :])
+    top, bottom = _at_walls(rows)
+    if top or bottom:
+        keep = torch.ones_like(ky[..., :, :1])
+        if top:
+            keep[..., 0, :] = 0.0
+        if bottom:
+            keep[..., -1, :] = 0.0
+        ky = ky * keep
+    return ky
+
+
+def _face_conductivities(K: torch.Tensor, above=None, below=None,
+                         rows=None):
     """Harmonic-mean conductivities on the east/west/north/south faces of
-    every node of K (..., n, n) (rows = y, cols = x), each (..., n, n), zero
-    where the face leaves the domain (top/bottom: built-in zero flux)."""
-    kx, ky = _face_kx_ky(K)
-    return (F.pad(kx, (0, 1)), F.pad(kx, (1, 0)),
-            F.pad(ky, (0, 0, 1, 0)), F.pad(ky, (0, 0, 0, 1)))
+    every node of K (..., h, n) (rows = y, cols = x), each (..., h, n),
+    zero where the face leaves the domain (top/bottom: built-in zero
+    flux); on a row block the arguments of ``_vertical_faces``."""
+    kx = _harm(K[..., :, :-1], K[..., :, 1:])
+    ky = _vertical_faces(K, above, below, rows)
+    return (F.pad(kx, (0, 1)), F.pad(kx, (1, 0)), ky[..., :-1, :],
+            ky[..., 1:, :])
 
 
-def _laplacian(v: torch.Tensor, faces) -> torch.Tensor:
-    """div(K grad v) * h^2 at every node, v taken as zero outside the grid.
+def _laplacian(v: torch.Tensor, faces, above=None, below=None
+               ) -> torch.Tensor:
+    """div(K grad v) * h^2 at every node of v (..., h, n), v taken as zero
+    outside the grid, or on a row block with ``above`` / ``below`` the
+    neighbours' rows next to it (zero at a wall, where the faces are zero
+    too).  The label solvers' PCGs, the row-sharded one
+    (``parallel/spatial.py``) and the in-loss PCG (``ops/darcy.py``)
+    share it.
 
-    One zero pad of v gives the four neighbour shifts as views.
+    One pad of v gives the four neighbour shifts as views.
     """
     aE, aW, aN, aS = faces
-    vp = F.pad(v, (1, 1, 1, 1))
+    if above is None:
+        vp = F.pad(v, (1, 1, 1, 1))
+    else:
+        vp = F.pad(torch.cat([above, v, below], -2), (1, 1))
     return (aE * (vp[..., 1:-1, 2:] - v) + aW * (vp[..., 1:-1, :-2] - v)
             + aN * (vp[..., :-2, 1:-1] - v) + aS * (vp[..., 2:, 1:-1] - v))
+
+
+def _face_fluxes(K: torch.Tensor, u: torch.Tensor, k_halo=(None, None),
+                 u_halo=(None, None), rows=None):
+    """The conservative fluxes of u around the nodes of K and u
+    (..., h, n), the whole field or a row block (``rows``; ``k_halo`` /
+    ``u_halo`` one row of K / u from each neighbour): ``(kx, fx)`` on
+    the vertical faces (..., h, n-1); ``(ky, fy)`` on the h + 1
+    horizontal faces from the one above the first row to the one below
+    the last, zero through the top and bottom walls."""
+    h = 1.0 / (K.shape[-1] - 1)
+    kx = _harm(K[..., :, :-1], K[..., :, 1:])
+    fx = -kx * (u[..., :, 1:] - u[..., :, :-1]) / h
+    ky = _vertical_faces(K, *k_halo, rows)
+    up = _with_rows(u, *u_halo)
+    fy = -ky * (up[..., 1:, :] - up[..., :-1, :]) / h
+    return kx, fx, ky, fy
 
 
 def _apply_operator(v: torch.Tensor, faces) -> torch.Tensor:
@@ -92,8 +151,10 @@ def _interior_mask(n: int, dtype=torch.float32, device=None) -> torch.Tensor:
     return m
 
 
-def _faces_to_nodes(fx: torch.Tensor, fy: torch.Tensor):
-    """Average face fluxes to nodes; zero vertical flux on top/bottom walls.
+def _faces_to_nodes(fx: torch.Tensor, fy: torch.Tensor, rows=None):
+    """Average face fluxes to nodes: fx (..., h, n-1) and the h + 1
+    horizontal faces fy of ``_face_fluxes``; zero vertical flux on the
+    top and bottom walls (those a row block ``rows`` holds).
 
     The load-bearing label convention: conservative face fluxes averaged to
     nodes, one-sided (edge-replicated) at the domain boundary, exact Neumann
@@ -101,10 +162,9 @@ def _faces_to_nodes(fx: torch.Tensor, fy: torch.Tensor):
     """
     sigma1 = (torch.cat([fx, fx[..., -1:]], -1)
               + torch.cat([fx[..., :1], fx], -1)) / 2.0
-    sigma2 = (torch.cat([fy, fy[..., -1:, :]], -2)
-              + torch.cat([fy[..., :1, :], fy], -2)) / 2.0
-    sigma2[..., 0, :] = 0.0
-    sigma2[..., -1, :] = 0.0
+    sigma2 = (fy[..., 1:, :] + fy[..., :-1, :]) / 2.0
+    for r in _wall_rows(rows, sigma2.shape[-2]):
+        sigma2[..., r, :] = 0.0
     return sigma1, sigma2
 
 
@@ -115,8 +175,8 @@ def darcy_fields(K: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     Fluxes are conservative face fluxes averaged to nodes (discretely
     divergence-free), not ``-K_node * grad_fd(u)``.
     """
-    sigma1, sigma2 = _faces_to_nodes(*_face_fluxes(*_face_kx_ky(K), u))
-    return torch.stack([u, sigma1, sigma2], dim=-3)
+    _, fx, _, fy = _face_fluxes(K, u)
+    return torch.stack([u, *_faces_to_nodes(fx, fy)], dim=-3)
 
 
 def solve_darcy_batch_fast(K_batch: torch.Tensor,
@@ -304,7 +364,8 @@ class _NonlinearFV:
         self.alphas = (alpha1, alpha2)
         self.mask = _interior_mask(n, K.dtype, K.device)
         self.u_d = _dirichlet_lift(n, K)
-        self.kx, self.ky = _face_kx_ky(K)
+        self.kx = _harm(K[..., :, :-1], K[..., :, 1:])
+        self.ky = _vertical_faces(K)[..., 1:-1, :]
 
     def _grads(self, w):
         return ((w[..., :, 1:] - w[..., :, :-1]) / self.h,
@@ -395,5 +456,6 @@ def solve_nonlinear_darcy(K: torch.Tensor, alpha1: float = 1.0,
             best_norm = torch.where(better, norm, best_norm)
         v = best_v
     u = fv.u_d + v * fv.mask
-    sigma1, sigma2 = _faces_to_nodes(*fv.fluxes(v))
+    sx, sy = fv.fluxes(v)
+    sigma1, sigma2 = _faces_to_nodes(sx, F.pad(sy, (0, 0, 1, 1)))
     return torch.stack([u, sigma1, sigma2], dim=-3)

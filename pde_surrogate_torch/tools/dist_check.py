@@ -41,35 +41,64 @@ def _device(mesh, device):
     return mesh.device if mesh is not None else torch.device(device)
 
 
-def codec_step(mesh, state_dict: dict, x: torch.Tensor, model_kw: dict,
-               device="cpu", lr: float = 1e-3, total_steps: int = 10,
-               dtype=torch.float32):
-    """``(step, model)``: a Sobel mixed-residual step (weight bound 10,
-    Adam + OneCycle) of a DenseED(**model_kw) holding ``state_dict`` on
-    this rank's part of the batch ``x`` (its samples, or on a data x space
-    mesh its block of them), in ``dtype``."""
+def _shard(t, mesh, multiple: int = 4):
+    """This rank's part of a global batch tensor (None passes): its block
+    on a data x space mesh, its samples on a data mesh."""
+    if t is None or mesh is None:
+        return t
+    if isinstance(mesh, DataSpaceMesh):
+        return batch_space_sharding(mesh, multiple)(t)
+    return shard_batch(t, mesh)
+
+
+def _codec_setup(mesh, state_dict, x, model_kw, device, dtype, y=None,
+                 lr=1e-3, total_steps=10):
+    """A DenseED(**model_kw) holding ``state_dict`` in ``dtype``, its Adam
+    + OneCycle state and this rank's part of ``x`` (and ``y``)."""
     from ..models.codec import DenseED
-    from ..ops.filters import SobelFilter
-    from ..train.codec_trainer import create_state, make_mixed_residual_step
+    from ..train.codec_trainer import create_state
     device = _device(mesh, device)
     model = DenseED(**model_kw).to(device, dtype)
     model.load_state_dict(state_dict)
-    state = create_state(model, lr_max=lr, total_steps=total_steps, mesh=mesh)
-    x = x.to(device, dtype)
+    state = create_state(model, lr_max=lr, total_steps=total_steps,
+                         mesh=mesh)
     if mesh is not None:
         replicate(model, mesh)
-        x = (batch_space_sharding(mesh)(x)
-             if isinstance(mesh, DataSpaceMesh) else shard_batch(x, mesh))
-    step = make_mixed_residual_step(state, SobelFilter(x.shape[-1]), 10.0)
+    x, y = (None if t is None else _shard(t.to(device, dtype), mesh)
+            for t in (x, y))
+    return model, state, x, y
+
+
+def codec_step(mesh, state_dict: dict, x: torch.Tensor, model_kw: dict,
+               device="cpu", lr: float = 1e-3, total_steps: int = 10,
+               dtype=torch.float32, physics: str = "sobel", y=None,
+               n_cg: int | None = None):
+    """``(step, model)``: a training step (Adam + OneCycle) of a
+    DenseED(**model_kw) holding ``state_dict`` on this rank's part of the
+    batch ``x`` (its samples, or on a data x space mesh its block of
+    them), in ``dtype``: the ``physics`` objective at weight bound 10
+    (``n_cg`` CG iterations for the fvcg family), or with ``physics``
+    "mle" the supervised step against the labels ``y``."""
+    from ..ops.filters import SobelFilter
+    from ..train.codec_trainer import make_mixed_residual_step, make_mle_step
+    model, state, x, y = _codec_setup(mesh, state_dict, x, model_kw, device,
+                                      dtype, y, lr, total_steps)
+    if physics == "mle":
+        step = make_mle_step(state)
+        return (lambda: step(x, y)), model
+    step = make_mixed_residual_step(state, SobelFilter(x.shape[-1]), 10.0,
+                                    physics=physics, fvcg_iters=n_cg)
     return (lambda: step(x)), model
 
 
 def codec_run(mesh, state_dict: dict, x: torch.Tensor, model_kw: dict,
-              n_steps: int = 3, device="cpu", dtype=torch.float32) -> dict:
-    """The losses of ``n_steps`` codec steps and the state dicts after the
-    first step and after the last."""
+              n_steps: int = 3, device="cpu", dtype=torch.float32,
+              **step_kw) -> dict:
+    """The losses of ``n_steps`` codec steps (``codec_step``'s
+    ``step_kw``) and the state dicts after the first step and after the
+    last."""
     step, model = codec_step(mesh, state_dict, x, model_kw, device,
-                             dtype=dtype)
+                             dtype=dtype, **step_kw)
     losses, states = [], []
     for _ in range(n_steps):
         losses.append(step()["loss"])
@@ -79,61 +108,161 @@ def codec_run(mesh, state_dict: dict, x: torch.Tensor, model_kw: dict,
             "state": states[-1]}
 
 
+def _on_mesh(mesh, shape):
+    """The (n_data, n_space) data x space mesh over ``mesh``'s process
+    group (every rank calls it), or ``mesh`` itself for ``shape`` None."""
+    return mesh if shape is None else dp_sp_mesh(*shape, mesh.device)
+
+
 def codec_dpsp_run(mesh, shape: tuple[int, int], state_dict: dict,
                    x: torch.Tensor, model_kw: dict, n_steps: int = 3,
-                   device="cpu", dtype=torch.float32) -> dict:
+                   device="cpu", dtype=torch.float32, **step_kw) -> dict:
     """``codec_run`` on the ``shape`` = (n_data, n_space) data x space
     mesh over ``mesh``'s process group (every rank calls it): each rank
     steps on its block of ``x`` (``batch_space_sharding``)."""
-    return codec_run(dp_sp_mesh(*shape, mesh.device), state_dict, x,
-                     model_kw, n_steps, device, dtype)
+    return codec_run(_on_mesh(mesh, shape), state_dict, x, model_kw,
+                     n_steps, device, dtype, **step_kw)
 
 
-def glow_step(mesh, state_dict: dict, x: torch.Tensor, model_kw: dict,
-              device="cpu", lr: float = 1e-3, total_steps: int = 20,
-              seed: int = 0, dtype=torch.float32):
-    """``(step, model)``: a reverse-KL step (Sobel, beta 150, weight bound
-    50, NaN guard) of a MultiScaleCondGlow(**model_kw) holding
-    ``state_dict`` on this rank's rows of ``x``; ``step(eps_list=None)``
-    draws the global batch's noise from (seed, step) unless given."""
-    from ..models.glow import MultiScaleCondGlow
+def codec_eval_run(mesh, shape, state_dict: dict, x: torch.Tensor,
+                   y: torch.Tensor, model_kw: dict, physics: str = "sobel",
+                   n_cg: int | None = None, device="cpu",
+                   dtype=torch.float32) -> dict:
+    """The eval step's outputs (``train.codec_trainer.make_eval_step``,
+    weight bound 10) on this rank's part of the test batch ``(x, y)``,
+    under the ``shape`` data x space mesh over ``mesh``'s group (``mesh``
+    None: one process; ``shape`` None: ``mesh`` itself)."""
     from ..ops.filters import SobelFilter
-    from ..train.glow_trainer import create_glow_state, make_reverse_kl_step
+    from ..train.codec_trainer import make_eval_step
+    m = None if mesh is None else _on_mesh(mesh, shape)
+    _, state, x, y = _codec_setup(m, state_dict, x, model_kw, device, dtype,
+                                  y)
+    out = make_eval_step(state, SobelFilter(x.shape[-1]), 10.0, physics,
+                         fvcg_iters=n_cg)(x, y)
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def codec_dropout_run(mesh, shape, state_dict: dict, x: torch.Tensor,
+                      model_kw: dict, n_steps: int = 3, device="cpu",
+                      dtype=torch.float64) -> dict:
+    """A DenseED with dropout under the ``shape`` data x space mesh over
+    ``mesh``'s group (``shape`` None: ``mesh`` itself, a data mesh;
+    ``mesh`` None: one process): the masks that step 0 draws (``models.
+    codec.dropout_masks``, seed 0; from a forward whose BatchNorm buffers
+    are put back), then ``codec_run``'s losses and states of ``n_steps``
+    Sobel steps, whose dropout draws from (0, step)."""
+    from ..models.codec import dropout_masks
+    m = None if mesh is None else _on_mesh(mesh, shape)
+    model, _, xl, _ = _codec_setup(m, state_dict, x, model_kw, device, dtype)
+    buffers = {k: v.clone() for k, v in model.state_dict().items()}
+    model.train()
+    with torch.no_grad(), dropout_masks(model, 0, 0, m, record=True) as src:
+        model(xl)
+    model.load_state_dict(buffers)
+    return {"masks": [k.cpu() for k in src.drawn],
+            **codec_run(m, state_dict, x, model_kw, n_steps, device, dtype)}
+
+
+def _glow_setup(mesh, state_dict, x, model_kw, device, dtype, y=None,
+                init_y=None, lr=1e-3, total_steps=20, seed=0):
+    """A MultiScaleCondGlow(**model_kw) holding ``state_dict``, its
+    guarded Adam state, and this rank's part of ``x`` (and ``y``); with
+    ``init_y``, the ActNorms data-initialised from (``init_y``, ``x``),
+    on a mesh from this rank's part of both."""
+    from ..models.glow import MultiScaleCondGlow
+    from ..train.glow_trainer import create_glow_state, data_init_actnorm
     device = _device(mesh, device)
     model = MultiScaleCondGlow(**model_kw).to(device, dtype)
     model.load_state_dict(state_dict)
     state = create_glow_state(model, lr_max=lr, total_steps=total_steps,
                               seed=seed, mesh=mesh)
-    x = x.to(device, dtype)
+    multiple = 2 ** (len(model_kw["flow_blocks"]) - 1)
     if mesh is not None:
         replicate(model, mesh)
-        x = shard_batch(x, mesh)
+    x, y, init_y = (None if t is None
+                    else _shard(t.to(device, dtype), mesh, multiple)
+                    for t in (x, y, init_y))
+    if init_y is not None:
+        data_init_actnorm(state, init_y, x)
+    return model, state, x, y
+
+
+def glow_step(mesh, state_dict: dict, x: torch.Tensor, model_kw: dict,
+              device="cpu", lr: float = 1e-3, total_steps: int = 20,
+              seed: int = 0, dtype=torch.float32, init_y=None,
+              physics: str = "sobel", n_cg: int | None = None):
+    """``(step, model)``: a reverse-KL step (``physics``, beta 150, weight
+    bound 50, NaN guard) of a MultiScaleCondGlow(**model_kw) holding
+    ``state_dict`` (ActNorms data-initialised from ``init_y`` when given)
+    on this rank's part of ``x``; ``step(eps_list=None)`` draws the
+    global batch's noise from (seed, step) unless given."""
+    from ..ops.filters import SobelFilter
+    from ..train.glow_trainer import make_reverse_kl_step
+    model, state, x, _ = _glow_setup(mesh, state_dict, x, model_kw, device,
+                                     dtype, init_y=init_y, lr=lr,
+                                     total_steps=total_steps, seed=seed)
     n = x.shape[-1]
-    step = make_reverse_kl_step(state, SobelFilter(n), 150.0, 50.0, 3 * n * n)
+    step = make_reverse_kl_step(state, SobelFilter(n), 150.0, 50.0,
+                                3 * n * n, physics, fvcg_iters=n_cg)
     return (lambda eps_list=None: step(x, eps_list=eps_list)), model
 
 
 def glow_run(mesh, state_dict: dict, x: torch.Tensor, model_kw: dict,
              n_steps: int = 3, first_eps=None, device="cpu",
-             dtype=torch.float32) -> dict:
-    """The losses of ``n_steps`` reverse-KL steps and the state dict after
-    them; ``first_eps`` (the global batch's eps_list) replaces the first
-    step's noise."""
+             dtype=torch.float32, **step_kw) -> dict:
+    """The losses of ``n_steps`` reverse-KL steps (``glow_step``'s
+    ``step_kw``), the state dict before them (after any data init) and
+    after them; ``first_eps`` (the global batch's eps_list) replaces the
+    first step's noise."""
     step, model = glow_step(mesh, state_dict, x, model_kw, device,
-                            dtype=dtype)
+                            dtype=dtype, **step_kw)
+    init = {k: v.detach().cpu().clone()
+            for k, v in model.state_dict().items()}
     losses = [step(None if i or first_eps is None
                    else [e.to(_device(mesh, device), dtype)
                          for e in first_eps])["loss"]
               for i in range(n_steps)]
-    return {"losses": torch.stack(losses).cpu(),
+    return {"losses": torch.stack(losses).cpu(), "init": init,
             "state": {k: v.detach().cpu().clone()
                       for k, v in model.state_dict().items()}}
 
 
+def glow_dpsp_run(mesh, shape: tuple[int, int], state_dict: dict,
+                  x: torch.Tensor, model_kw: dict, n_steps: int = 3,
+                  first_eps=None, device="cpu", dtype=torch.float32,
+                  **step_kw) -> dict:
+    """``glow_run`` on the ``shape`` data x space mesh over ``mesh``'s
+    process group: each rank on its rows of its samples."""
+    return glow_run(_on_mesh(mesh, shape), state_dict, x, model_kw, n_steps,
+                    first_eps, device, dtype, **step_kw)
+
+
+def glow_eval_fkl_run(mesh, shape, state_dict: dict, x: torch.Tensor,
+                      y: torch.Tensor, model_kw: dict, eps, device="cpu",
+                      dtype=torch.float32) -> dict:
+    """Under the ``shape`` data x space mesh over ``mesh``'s group
+    (``mesh`` None: one process): the eval step's outputs (one sample on
+    the global batch's noise ``eps``, beta 150, weight bound 50), then the
+    loss of one forward-KL step on ``(x, y)``."""
+    from ..ops.filters import SobelFilter
+    from ..train.glow_trainer import make_forward_kl_step, make_glow_eval_step
+    m = None if mesh is None else _on_mesh(mesh, shape)
+    model, state, xl, yl = _glow_setup(m, state_dict, x, model_kw, device,
+                                       dtype, y)
+    n = x.shape[-1]
+    eps = [e.to(_device(m, device), dtype) for e in eps]
+    out = make_glow_eval_step(state, SobelFilter(n), 150.0, 50.0,
+                              3 * n * n)(xl, yl, eps=eps)
+    fkl = make_forward_kl_step(state, 3 * n * n)(xl, yl)
+    return {"eval": {k: v.cpu() for k, v in out.items()},
+            "fkl_loss": fkl["loss"].cpu()}
+
+
 def calls(mesh, todo) -> list:
-    """``fn(mesh, *args)`` for each ``(fn, args)`` of ``todo``, in order:
-    several checks in one start of the ranks."""
-    return [fn(mesh, *args) for fn, args in todo]
+    """``fn(mesh, *args, **kwargs)`` for each ``(fn, args)`` or ``(fn,
+    args, kwargs)`` of ``todo``, in order: several checks in one start of
+    the ranks."""
+    return [t[0](mesh, *t[1], **(t[2] if len(t) > 2 else {})) for t in todo]
 
 
 def spatial_runs(mesh, cases) -> list[list[torch.Tensor]]:
@@ -302,3 +431,22 @@ def halo_runs(mesh, x: torch.Tensor, cases) -> list[dict]:
         out.append({"above": above.detach(), "below": below.detach(),
                     "grad": block.grad})
     return out
+
+
+def pcg_rows_runs(mesh, cases) -> list[dict]:
+    """For each ``(K, out, n_cg, g)`` of ``cases`` (whole fields, H split
+    over every rank of ``mesh``): this rank's rows of the in-loss PCG's
+    error e (``ops.darcy._cg_pressure_errors`` on row blocks) and the
+    gradient of ``sum(e * g)`` with respect to its block of ``out``."""
+    from ..ops.darcy import _cg_pressure_errors
+    from ..parallel.halo import RowShard
+    rows = RowShard(mesh.group, mesh.rank, mesh.world_size)
+    results = []
+    for K, out, n_cg, g in cases:
+        h = K.shape[-2] // mesh.world_size
+        sl = slice(mesh.rank * h, (mesh.rank + 1) * h)
+        block = out[..., sl, :].clone().requires_grad_(True)
+        e = _cg_pressure_errors(K[..., sl, :], block, n_cg, rows)
+        (e * g[..., sl, :]).sum().backward()
+        results.append({"e": e.detach(), "grad": block.grad})
+    return results

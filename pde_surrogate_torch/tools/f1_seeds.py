@@ -9,12 +9,20 @@ seed the Adam warmup's final loss, the last epoch's loss, and u / σ₁ / σ₂
 rel-L2 at the last test epoch.  Each run's log goes to ``--out``.
 ``--init-weights`` starts every run from one .npz of initial Decoder
 weights and latent: ``f1_jax_init_seed1.npz`` beside this file holds the
-JAX package's for seed 1 (``tools/f1_jax_init.py``).
+JAX package's for seed 1 (``tools/f1_jax_init.py``).  ``--conv-operands
+f32 bf16`` runs each seed twice, the second with the Decoder's convs at an
+emulated TPU DEFAULT precision (``tools/f1_tpu_precision.py``), keyed
+``<seed>-bf16``.  Each run also reports its loss at epochs 1, 50 and 500,
+u / σ₁ / σ₂ rel-L2 at epochs 50 and 500, and how many L-BFGS epochs ended
+above the epoch before (``rises``); ``--reference-log`` adds the same
+numbers parsed from a JAX run's log.
 
 Run:  python3 -m pde_surrogate_torch.tools.f1_seeds --seeds 1 2 3 \
           --out chiprun_out/f1
       python3 -m pde_surrogate_torch.tools.f1_seeds --seeds 1 \
-          --init-weights pde_surrogate_torch/tools/f1_jax_init_seed1.npz
+          --init-weights pde_surrogate_torch/tools/f1_jax_init_seed1.npz \
+          --conv-operands f32 bf16 \
+          --reference-log logs/solve_conv_kle1024_longadam.log
 """
 
 from __future__ import annotations
@@ -34,13 +42,21 @@ RECIPE = ["--data", "grf", "--kle", "1024", "--idx", "8", "--epochs", "500",
 
 
 def parse_log(text: str) -> dict:
-    """The warmup's loss, the last epoch's loss and the last rel-L2."""
+    """The warmup's loss, the last epoch's loss and the last rel-L2; the
+    loss at epochs 1, 50 and 500, the rel-L2 at epochs 50 and 500, and
+    the count of epochs whose loss rose over the epoch before."""
     warm = re.findall(r"Adam warmup \(\d+ steps\): loss ([\d.eE+-]+)", text)
-    losses = re.findall(r"epoch \d+: loss ([\d.eE+-]+)", text)
-    rel = re.findall(r"relative l2 \[([^\]]+)\]", text)
+    losses = {int(e): float(v) for e, v in
+              re.findall(r"epoch (\d+): loss ([\d.eE+-]+)", text)}
+    rel = {int(e): [float(v) for v in r.split()] for e, r in
+           re.findall(r"epoch (\d+): relative l2 \[([^\]]+)\]", text)}
+    seq = [losses[e] for e in sorted(losses)]
     return {"adam_loss": float(warm[-1]) if warm else None,
-            "final_loss": float(losses[-1]) if losses else None,
-            "rel_l2": ([float(v) for v in rel[-1].split()] if rel else None)}
+            "final_loss": seq[-1] if seq else None,
+            "rel_l2": rel[max(rel)] if rel else None,
+            "loss_at": {e: losses.get(e) for e in (1, 50, 500)},
+            "rel_l2_at": {e: rel.get(e) for e in (50, 500)},
+            "rises": sum(b > a for a, b in zip(seq, seq[1:]))}
 
 
 def main(argv=None) -> int:
@@ -50,6 +66,12 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda")
     p.add_argument("--init-weights", default=None,
                    help="a .npz of initial Decoder weights and latent")
+    p.add_argument("--conv-operands", nargs="+", default=["f32"],
+                   choices=["f32", "bf16"],
+                   help="the Decoder convs' operands: f32, and/or bf16 "
+                        "(emulated TPU DEFAULT precision)")
+    p.add_argument("--reference-log", default=None,
+                   help="a JAX run's log, parsed alike")
     p.add_argument("--extra", nargs=argparse.REMAINDER, default=[],
                    help="further solver flags (a shorter recipe for a try)")
     args = p.parse_args(argv)
@@ -61,16 +83,24 @@ def main(argv=None) -> int:
         RECIPE + ["--device", args.device, "--data-dir", data, *args.extra]))
     procs = {}
     for s in args.seeds:
-        log = open(os.path.join(args.out, f"seed{s}.log"), "w")
-        cmd = [sys.executable, "-m",
-               "pde_surrogate_torch.cli.solve_conv_mixed_residual",
-               *RECIPE, "--seed", str(s), "--device", args.device,
-               "--data-dir", data, "--exp-dir", os.path.join(work, f"s{s}"),
-               *(["--init-weights", os.path.abspath(args.init_weights)]
-                 if args.init_weights else []), *args.extra]
-        procs[s] = (subprocess.Popen(cmd, stdout=log,
-                                     stderr=subprocess.STDOUT), log)
+        for ops in args.conv_operands:
+            key = str(s) if ops == "f32" else f"{s}-{ops}"
+            module = ("pde_surrogate_torch.cli.solve_conv_mixed_residual"
+                      if ops == "f32"
+                      else "pde_surrogate_torch.tools.f1_tpu_precision")
+            log = open(os.path.join(args.out, f"seed{key}.log"), "w")
+            cmd = [sys.executable, "-m", module,
+                   *RECIPE, "--seed", str(s), "--device", args.device,
+                   "--data-dir", data,
+                   "--exp-dir", os.path.join(work, f"s{key}"),
+                   *(["--init-weights", os.path.abspath(args.init_weights)]
+                     if args.init_weights else []), *args.extra]
+            procs[key] = (subprocess.Popen(cmd, stdout=log,
+                                           stderr=subprocess.STDOUT), log)
     result = {}
+    if args.reference_log:
+        with open(args.reference_log) as f:
+            result["reference"] = {"rc": 0, **parse_log(f.read())}
     for s, (proc, log) in procs.items():
         rc = proc.wait()
         log.close()

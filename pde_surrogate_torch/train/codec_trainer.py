@@ -17,19 +17,28 @@ global batch's.  Every loss term is a mean over equal shards, so the mean
 of the ranks' losses is the global loss.
 
 Under a data x space mesh (``parallel.mesh.dp_sp_mesh``) each rank holds a
-row block of its data shard: the model's convs exchange halo rows, the
-Sobel loss is this rank's partial sum (``ops/darcy.py``), so a data
-shard's loss is the sum over its space ranks and the global loss the mean
-of those over the data ranks.  Only the Sobel objective has a row-block
-form; the finite-volume ones, the supervised step and the eval step raise
-there (ROADMAP E3d).
+row block of its data shard: the model's convs exchange halo rows, every
+objective (Sobel, ``fv``, ``fvcg``, ``sobel_fvcg``, the supervised MSE) is
+this rank's partial sum (``ops/darcy.py``; the in-loss PCG exchanges one
+halo row per matvec and all-reduces its dots over the space group), so a
+data shard's loss is the sum over its space ranks and the global loss the
+mean of those over the data ranks.  The eval step's per-sample metrics are
+summed over the space group.  As in the JAX package this path is reached
+through the API, not a CLI flag.
+
+Dropout draws its masks from a generator of (``dropout_seed``, the step
+counter), ``models.codec.dropout_masks``: the masks of the global batch,
+of which each rank keeps its samples and rows, as JAX's
+``fold_in(key(seed), step)``; a resumed run draws what an uninterrupted
+one draws.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.darcy import (flux_pressure_consistency, fv_cg_anchors,
+from ..models.codec import dropout_masks
+from ..ops.darcy import (_mean, flux_pressure_consistency, fv_cg_anchors,
                          fv_cg_error_loss, fv_mixed_residual_loss,
                          mixed_residual_loss)
 from ..ops.filters import SobelFilter
@@ -100,8 +109,10 @@ def _physics_loss(physics: str, x, output, sobel, weight_bound,
     ``fvcg_iters=None`` scales the CG depth with the grid size.
     ``nonlinear`` ("poly" or "exp", beta1 = beta2 = 1) picks the law of
     the Sobel objective; the FV objectives take the linear law only, as in
-    the JAX package.
+    the JAX package.  On a row block (``sobel.rows``) every objective is
+    this rank's partial sum.
     """
+    rows = sobel.rows
     if physics == "sobel":
         return mixed_residual_loss(x, output, sobel, weight_bound, nonlinear)
     if physics == "sobel_fvcg":
@@ -110,7 +121,7 @@ def _physics_loss(physics: str, x, output, sobel, weight_bound,
                              "only")
         loss, (pde, diri, neum) = mixed_residual_loss(x, output, sobel,
                                                       weight_bound)
-        err_u, err_flux = fv_cg_anchors(x, output, fvcg_iters)
+        err_u, err_flux = fv_cg_anchors(x, output, fvcg_iters, rows)
         anchor = fvcg_weight * err_u + fvcg_flux_weight * err_flux
         return loss + anchor, (pde + anchor, diri, neum)
     if physics in ("fv", "fvcg"):
@@ -118,15 +129,17 @@ def _physics_loss(physics: str, x, output, sobel, weight_bound,
             raise ValueError(f"physics='{physics}' supports the linear law "
                              f"only")
         if physics == "fv":
-            return fv_mixed_residual_loss(x, output, weight_bound)
-        return fv_cg_error_loss(x, output, weight_bound, fvcg_iters)
+            return fv_mixed_residual_loss(x, output, weight_bound, rows)
+        return fv_cg_error_loss(x, output, weight_bound, fvcg_iters, rows)
     raise ValueError(f"unknown physics loss: {physics}")
 
 
-def _no_rows(state: CodecState, what: str) -> None:
-    if row_shard(state.mesh) is not None:
-        raise NotImplementedError(f"{what} under a data x space mesh is not "
-                                  f"ported (ROADMAP E3d)")
+def _train_forward(state: CodecState, x: torch.Tensor, dropout_seed: int):
+    """The train-mode forward of this step, its dropout masks drawn from
+    (``dropout_seed``, ``state.step``)."""
+    state.model.train()
+    with dropout_masks(state.model, dropout_seed, state.step, state.mesh):
+        return state.model(x)
 
 
 def _apply_update(state: CodecState, loss: torch.Tensor):
@@ -162,25 +175,21 @@ def make_mixed_residual_step(state: CodecState, sobel: SobelFilter,
                              physics: str = "sobel",
                              fvcg_weight: float = 100.0,
                              fvcg_flux_weight: float = 0.0,
-                             fvcg_iters: int | None = None):
+                             fvcg_iters: int | None = None,
+                             dropout_seed: int = 0):
     """Label-free physics step on a batch of K images (B, 1, H, W):
-    train-mode forward (BN running stats update), the ``physics`` objective
+    train-mode forward (BN running stats update; dropout from
+    (``dropout_seed``, step)), the ``physics`` objective
     (``_physics_loss``), backward, Adam at the scheduled lr of this
     update.  Under a data x space mesh the batch is this rank's block
     (``parallel.mesh.batch_space_sharding``) and ``sobel`` the whole
     fields' filter."""
-    model = state.model
     rows = row_shard(state.mesh)
     if rows is not None:
-        if physics != "sobel":
-            raise NotImplementedError(
-                f"physics='{physics}' under a data x space mesh needs the "
-                f"row-sharded PCG in the loss (ROADMAP E3d)")
         sobel = sobel.on_rows(rows)
 
     def step(x: torch.Tensor) -> dict:
-        model.train()
-        output = model(x)
+        output = _train_forward(state, x, dropout_seed)
         loss, (pde, diri, neum) = _physics_loss(
             physics, x, output, sobel, weight_bound, None, fvcg_weight,
             fvcg_flux_weight, fvcg_iters)
@@ -192,16 +201,16 @@ def make_mixed_residual_step(state: CodecState, sobel: SobelFilter,
     return step
 
 
-def make_mle_step(state: CodecState):
+def make_mle_step(state: CodecState, dropout_seed: int = 0):
     """Supervised MSE step on (K, labels) batches
     (train_codec_max_likelihood.py:201-213): train-mode forward, mean
-    squared error against the labels, backward, Adam."""
-    _no_rows(state, "the supervised step")
-    model = state.model
+    squared error against the labels (on a row block this rank's partial
+    sum over the global count), backward, Adam."""
+    rows = row_shard(state.mesh)
 
     def step(x: torch.Tensor, y: torch.Tensor) -> dict:
-        model.train()
-        loss = torch.mean((model(x) - y) ** 2)
+        output = _train_forward(state, x, dropout_seed)
+        loss = _mean((output - y) ** 2, rows)
         _apply_update(state, loss)
         return global_metrics({"loss": loss}, state.mesh)
 
@@ -215,9 +224,16 @@ def make_eval_step(state: CodecState, sobel: SobelFilter,
                    fvcg_iters: int | None = None):
     """Test step (reference train_codec_mixed_residual.py:166-206): BN in
     eval mode, the ``physics`` loss, per-sample (rel_l2, sse) against the
-    labels, and the label-free flux-pressure consistency."""
-    _no_rows(state, "the eval step")
+    labels, and the label-free flux-pressure consistency.
+
+    Under a mesh the loss is the global batch's (``global_metrics``), the
+    per-sample metrics and the consistency are this data shard's (on a
+    data x space mesh summed over the space group), and ``output`` is this
+    rank's block."""
     model = state.model
+    rows = row_shard(state.mesh)
+    if rows is not None:
+        sobel = sobel.on_rows(rows)
 
     @torch.no_grad()
     def step(x: torch.Tensor, y: torch.Tensor) -> dict:
@@ -226,10 +242,10 @@ def make_eval_step(state: CodecState, sobel: SobelFilter,
         loss, _ = _physics_loss(physics, x, output, sobel, weight_bound,
                                 None, fvcg_weight, fvcg_flux_weight,
                                 fvcg_iters)
-        return {"loss": loss,
-                "rel_l2": relative_l2(output, y),
-                "sse": squared_error_sum(output, y),
-                "consistency": flux_pressure_consistency(x, output),
+        return {"loss": global_metrics({"loss": loss}, state.mesh)["loss"],
+                "rel_l2": relative_l2(output, y, rows),
+                "sse": squared_error_sum(output, y, rows),
+                "consistency": flux_pressure_consistency(x, output, rows),
                 "output": output}
 
     return step

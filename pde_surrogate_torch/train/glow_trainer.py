@@ -23,6 +23,13 @@ the predictive entropy (bits per pixel), backprop through the whole flow.
   BatchNorm moments are global, the gradients are averaged over the ranks
   before the NaN guard reads them (so every rank skips the same steps),
   and the returned metrics are the global batch's.
+* Under a data x space mesh each rank holds its rows of its samples
+  (``parallel.mesh.batch_space_sharding`` with rows a multiple of
+  2^(scales - 1)) and the rows of the global noise; the physics terms are
+  this rank's partial sums (``ops/darcy.py``), and so is each sample's
+  log-likelihood, so the entropy term, linear in it, sums over the space
+  ranks to the data shard's.  ActNorm's data init reads the moments of
+  the whole group.
 """
 
 from __future__ import annotations
@@ -32,10 +39,11 @@ import math
 import torch
 
 from ..models.flow import actnorm_init_from_input, actnorm_module_paths
-from ..ops.darcy import (conv_boundary_condition, conv_constitutive_constraint,
-                         conv_continuity_constraint, fv_cg_anchors)
+from ..ops.darcy import (conv_boundary_condition, fv_cg_anchors,
+                         mixed_residual_loss)
 from ..ops.filters import SobelFilter
-from ..parallel.mesh import all_reduce_grads, shard_batch
+from ..parallel.mesh import (DataSpaceMesh, all_reduce_grads,
+                             batch_space_sharding, row_shard, shard_batch)
 from ..utils.config import make_generator
 from ..utils.metrics import relative_l2, squared_error_sum
 from .codec_trainer import _adam_l2, global_metrics
@@ -132,25 +140,27 @@ def reverse_kl_objective(x, output, log_likelihood, sobel: SobelFilter,
       err_flux of ``fv_cg_anchors`` to the residual;
     * ``fvcg``: residual = err_u + err_flux, boundary = dirichlet only.
 
-    neg_entropy = mean log-likelihood / ln 2 / ``n_out_pixels``.
+    neg_entropy = mean log-likelihood / ln 2 / ``n_out_pixels`` (the whole
+    field's count).  On a row block (``sobel.rows``) ``output`` and the
+    log-likelihood are this rank's and every part is its partial sum.
     """
     if physics not in ("sobel", "sobel_fvcg", "fvcg"):
         raise ValueError(f"unknown glow physics loss: {physics}")
-    diri, neum = conv_boundary_condition(output)
+    rows = sobel.rows
     extra = {}
     if physics == "fvcg":
-        err_u, err_flux = fv_cg_anchors(x, output, fvcg_iters)
+        diri, neum = conv_boundary_condition(output, rows)
+        err_u, err_flux = fv_cg_anchors(x, output, fvcg_iters, rows)
         residual = err_u + err_flux
         loss_pde = residual + diri * weight_bound
         boundary = diri
         extra = {"anchor_u": err_u, "anchor_flux": err_flux}
     else:
-        residual = (conv_constitutive_constraint(x, output, sobel)
-                    + conv_continuity_constraint(output, sobel))
-        loss_pde = residual + (diri + neum) * weight_bound
+        loss_pde, (residual, diri, neum) = mixed_residual_loss(
+            x, output, sobel, weight_bound)
         boundary = diri + neum
         if physics == "sobel_fvcg":
-            err_u, err_flux = fv_cg_anchors(x, output, fvcg_iters)
+            err_u, err_flux = fv_cg_anchors(x, output, fvcg_iters, rows)
             anchor = fvcg_weight * err_u + fvcg_flux_weight * err_flux
             loss_pde = loss_pde + anchor
             residual = residual + anchor
@@ -169,10 +179,12 @@ def make_reverse_kl_step(state: GlowState, sobel: SobelFilter, beta: float,
     glow_trainer.py:89-170): ``generate`` in train mode with the step's
     noise, ``reverse_kl_objective``, then the guarded Adam update.
     ``eps_list`` (optional, per call) replaces the drawn noise; under a
-    mesh it is the global batch's, as the drawn noise is."""
+    mesh it is the global batch's, as the drawn noise is, and ``x`` is
+    this rank's part of the batch (``sobel`` the whole fields' filter)."""
     if physics not in ("sobel", "sobel_fvcg", "fvcg"):
         raise ValueError(f"unknown glow physics loss: {physics}")
     model = state.model
+    sobel = _on_rows(sobel, state.mesh)
 
     def step(x: torch.Tensor, eps_list=None) -> dict:
         model.train()
@@ -191,26 +203,40 @@ def make_reverse_kl_step(state: GlowState, sobel: SobelFilter, beta: float,
     return step
 
 
+def _on_rows(sobel: SobelFilter, mesh) -> SobelFilter:
+    rows = row_shard(mesh)
+    return sobel if rows is None else sobel.on_rows(rows)
+
+
+def _shard(t: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's samples (and on a data x space mesh its rows) of a
+    global NCHW tensor."""
+    if isinstance(mesh, DataSpaceMesh):
+        return batch_space_sharding(mesh, multiple=1)(t)
+    return shard_batch(t, mesh)
+
+
 def _rank_noise(model, mesh, x, generator, eps_list=None, n_samples=None):
-    """This rank's rows of the global batch's noise: ``eps_list`` (the
-    global batch's), or drawn from ``generator`` for ``world`` times the
-    rows of ``x``, as one process draws it for the whole batch.  With
+    """This rank's part of the global batch's noise: ``eps_list`` (the
+    global batch's), or drawn from ``generator`` for ``n_data`` times the
+    samples of ``x``, as one process draws it for the whole batch; its
+    samples, and on a data x space mesh its rows of every latent.  With
     ``n_samples`` the entries are (n_samples, B, ...), sliced on B."""
     if eps_list is None:
         draw = model.create_noise(generator, n_samples or 1,
-                                  x.shape[0] * mesh.world_size)
+                                  x.shape[0] * mesh.n_data)
         eps_list = draw if n_samples else [e[0] for e in draw]
     if n_samples:
-        return [shard_batch(e.transpose(0, 1), mesh).transpose(0, 1)
-                for e in eps_list]
-    return [shard_batch(e, mesh) for e in eps_list]
+        return [torch.stack([_shard(s, mesh) for s in e]) for e in eps_list]
+    return [_shard(e, mesh) for e in eps_list]
 
 
 def make_forward_kl_step(state: GlowState, n_out_pixels: int):
     """Maximum-likelihood step on labelled (x, y) through the density path
     (JAX glow_trainer.py:173-202): bits per pixel -log p / ln 2 / pixels.
     Build the model with ``train_sampling=False`` so that this path
-    inverts no matrix."""
+    inverts no matrix.  Under a mesh ``x`` and ``y`` are this rank's part
+    of the batch and the returned metrics the global batch's."""
     model = state.model
 
     def step(x: torch.Tensor, y: torch.Tensor) -> dict:
@@ -218,7 +244,7 @@ def make_forward_kl_step(state: GlowState, n_out_pixels: int):
         _, logp, _ = model(y, x)
         bits_per_pixel = -logp.mean() / LN2 / n_out_pixels
         _guarded_update(state, bits_per_pixel)
-        loss = bits_per_pixel.detach()
+        loss = global_metrics({"loss": bits_per_pixel}, state.mesh)["loss"]
         return {"loss": loss, "bits_per_pixel": loss}
 
     return step
@@ -234,12 +260,16 @@ def make_glow_eval_step(state: GlowState, sobel: SobelFilter, beta: float,
     The entropy comes from the test batch's own log-likelihood.  Noise is
     drawn from ``generator``, or given as ``eps`` (the eps_list of
     ``generate``; with ``n_samples`` a pair (sample eps_list, generate
-    eps_list)).  Under a mesh ``x`` and ``y`` are this rank's rows of the
+    eps_list)).  Under a mesh ``x`` and ``y`` are this rank's part of the
     test batch, the noise is the global batch's (drawn or given) sliced,
-    and every output is this rank's.
+    ``output`` is this rank's, the scalar terms are the global batch's
+    (``global_metrics``) and ``rel_l2`` and ``sse`` this data shard's
+    (summed over the space group on a data x space mesh).
     """
     model = state.model
     mesh = state.mesh
+    rows = row_shard(mesh)
+    sobel = _on_rows(sobel, mesh)
 
     @torch.no_grad()
     def step(x, y, generator: torch.Generator | None = None, eps=None):
@@ -262,15 +292,15 @@ def make_glow_eval_step(state: GlowState, sobel: SobelFilter, beta: float,
         else:
             output, log_likelihood = model.generate(x, eps_list=eps,
                                                     generator=generator)
-        residual = (conv_constitutive_constraint(x, output, sobel)
-                    + conv_continuity_constraint(output, sobel))
-        diri, neum = conv_boundary_condition(output)
-        loss_pde = residual + (diri + neum) * weight_bound
+        loss_pde, (residual, diri, neum) = mixed_residual_loss(
+            x, output, sobel, weight_bound)
         neg_entropy = log_likelihood.mean() / LN2 / n_out_pixels
-        return {"loss": loss_pde * beta + neg_entropy, "residual": residual,
-                "boundary": diri + neum, "neg_entropy": neg_entropy,
-                "output": output, "rel_l2": relative_l2(output, y),
-                "sse": squared_error_sum(output, y)}
+        return {**global_metrics(
+                    {"loss": loss_pde * beta + neg_entropy,
+                     "residual": residual, "boundary": diri + neum,
+                     "neg_entropy": neg_entropy}, mesh),
+                "output": output, "rel_l2": relative_l2(output, y, rows),
+                "sse": squared_error_sum(output, y, rows)}
 
     return step
 
@@ -287,7 +317,9 @@ def data_init_actnorm(state: GlowState, y: torch.Tensor,
     path up to that ActNorm and set weight = 1/std, bias = -mean/std from
     its input.  Each layer thus sees the already initialised ones before
     it (Gauss-Seidel), as the reference's lazy init does; the Jacobi sweep
-    (all layers from one pass) diverges on deep stacks."""
+    (all layers from one pass) diverges on deep stacks.  On a replica
+    (``parallel.mesh.replicate``) ``y`` and ``x`` are this rank's part of
+    the batch and the moments the whole group's."""
     model = state.model
     model.eval()
     for name in actnorm_module_paths(model):

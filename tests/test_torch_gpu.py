@@ -346,3 +346,55 @@ def test_dpsp_codec_steps_on_two_gpus_match_plain(cuda, tmp_path):
     _assert_dp_equal(ranks[0], dc.codec_run(None, sd, x, DP_KW, 3, "cuda",
                                             torch.float64))
     _assert_dp_equal(ranks[1], ranks[0])
+
+
+@pytest.mark.parametrize("objective", ["fv", "fvcg", "sobel_fvcg", "mle"])
+def test_dpsp_objectives_on_one_nccl_rank_match_plain(cuda, tmp_path,
+                                                      objective):
+    """Three DenseED steps of each finite-volume objective (16 CG
+    iterations) and of the supervised step on a 1x1 data x space mesh of
+    one NCCL rank (the row-block FV terms, the in-loss PCG's halo rows and
+    space all-reduces) against three plain steps on the card, in
+    float64."""
+    from pde_surrogate_torch.parallel.launch import run
+    from pde_surrogate_torch.tools import dist_check as dc
+    sd, x = _dp_inputs()
+    y = solve_darcy_batch_fast(x[:, 0].to(cuda)).cpu()
+    kw = {"physics": objective, "y": y, "n_cg": 16}
+    got, = run(dc.calls, 1, [(dc.codec_dpsp_run, ((1, 1), sd, x, DP_KW, 3,
+                                                  "cuda", torch.float64),
+                              kw)], device="cuda", workdir=str(tmp_path))
+    _assert_dp_equal(got, dc.codec_run(None, sd, x, DP_KW, 3, "cuda",
+                                       torch.float64, **kw))
+
+
+def test_dpsp_glow_steps_on_one_nccl_rank_match_plain(cuda, tmp_path):
+    """The cGlow (enc and flow [2, 2, 2], 32^2, heads at 1e-3) on a 1x1
+    data x space mesh of one NCCL rank: ActNorm data-init over the group
+    (within 2e-5 of each parameter's largest value), then three
+    reverse-KL steps in float64, the losses within 2e-5 relative and the
+    parameters and buffers within 2e-5 of the plain steps on the card
+    (the bounds of ``tools/dist_check``)."""
+    from pde_surrogate_torch.parallel.launch import run
+    from pde_surrogate_torch.tools import dist_check as dc
+    from pde_surrogate_torch.tools.glow_check import glow_model
+    kw = dict(img_size=32, x_channels=1, y_channels=3, enc_blocks=[2, 2, 2],
+              flow_blocks=[2, 2, 2])
+    sd = glow_model(32, [2, 2, 2], [2, 2, 2], 1e-3, "cpu").state_dict()
+    x = torch.from_numpy(sample_kle(8, 32, 64, rng=6))[:, None]
+    y = solve_darcy_batch_fast(x[:, 0].to(cuda)).cpu()
+    got, = run(dc.calls, 1, [(dc.glow_dpsp_run, ((1, 1), sd, x, kw, 3, None,
+                                                 "cuda", torch.float64),
+                              {"init_y": y})],
+               device="cuda", workdir=str(tmp_path))
+    want = dc.glow_run(None, sd, x, kw, 3, None, "cuda", torch.float64,
+                       init_y=y)
+    for k, v in want["init"].items():
+        torch.testing.assert_close(
+            got["init"][k], v, rtol=0,
+            atol=dc.GLOW_LOSS_RTOL * max(float(v.abs().max()), 1.0), msg=k)
+    np.testing.assert_allclose(got["losses"].numpy(), want["losses"].numpy(),
+                               rtol=dc.GLOW_LOSS_RTOL)
+    for k, v in want["state"].items():
+        torch.testing.assert_close(got["state"][k], v, rtol=0,
+                                   atol=dc.CODEC_STATE_ATOL, msg=k)

@@ -237,13 +237,15 @@ def test_device_dataset_rejects_an_indivisible_batch():
 
 
 def _dp_sp_refusals(mesh):
-    """What the data x space mesh raises on, in a one-rank gloo group."""
+    """What the data x space mesh takes and what it raises on, in a
+    one-rank gloo group."""
     from pde_surrogate_torch.models.codec import Conv2d, DenseED
     from pde_surrogate_torch.models.glow import MultiScaleCondGlow
     from pde_surrogate_torch.ops.filters import SobelFilter
     from pde_surrogate_torch.parallel.halo import RowShard
     from pde_surrogate_torch.train.codec_trainer import (
-        create_state, make_mixed_residual_step)
+        create_state, make_eval_step, make_mixed_residual_step,
+        make_mle_step)
     with pytest.raises(ValueError, match="a 4x2 mesh in a process group of "
                                          "1 ranks"):
         tmesh.dp_sp_mesh(4, 2, "cpu")
@@ -253,27 +255,47 @@ def _dp_sp_refusals(mesh):
     assert shard(torch.zeros(2, 1, 8, 8)).shape == (2, 1, 8, 8)
     with pytest.raises(ValueError, match="multiple of 4"):
         shard(torch.zeros(2, 1, 6, 6))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tmesh.batch_space_sharding(m, 8)(torch.zeros(2, 1, 12, 12))
     kw = dict(in_channels=1, out_channels=3, imsize=8, blocks=[1, 1, 1],
               growth_rate=2, init_features=4)
-    model = tmesh.replicate(DenseED(**kw), m)
+    x = torch.from_numpy(sample_kle(2, 8, 16, rng=0))[:, None].float()
+    # every objective, the supervised and eval steps and dropout take the
+    # mesh (their parity: tests/test_torch_parallel_space_codec.py)
+    model = tmesh.replicate(DenseED(**kw, drop_rate=0.1), m)
     state = create_state(model, 1e-3, 10, mesh=m)
-    for physics in ("fv", "fvcg", "sobel_fvcg"):
-        with pytest.raises(NotImplementedError, match="E3d"):
-            make_mixed_residual_step(state, SobelFilter(8), physics=physics)
-    with pytest.raises(NotImplementedError, match="E3d"):
-        tmesh.replicate(DenseED(**kw, drop_rate=0.1), m)
-    # a codec conv with a bias keeps it on the whole field, and has no
-    # row-block form
+    for physics in ("sobel", "fv", "fvcg", "sobel_fvcg"):
+        out = make_mixed_residual_step(state, SobelFilter(8),
+                                       physics=physics, fvcg_iters=4)(x)
+        assert torch.isfinite(out["loss"])
+    y = torch.zeros(2, 3, 8, 8)
+    assert torch.isfinite(make_mle_step(state)(x, y)["loss"])
+    out = make_eval_step(state, SobelFilter(8), physics="fvcg",
+                         fvcg_iters=4)(x, y)
+    assert out["rel_l2"].shape == (2, 3) and out["output"].shape == y.shape
+    # dropout on a mesh draws from the step's generator, never torch's
+    # global RNG
+    model.train()
+    with pytest.raises(ValueError, match="dropout_masks"):
+        model(x)
+    # a biased codec conv has a row form: the bias after the block conv
     conv = Conv2d(1, 2, 3, padding=1)
-    x = torch.randn(1, 1, 8, 8)
-    torch.testing.assert_close(conv(x), torch.nn.functional.conv2d(
+    whole = conv(x)
+    torch.testing.assert_close(whole, torch.nn.functional.conv2d(
         x, conv.weight, conv.bias, 1, 1), rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="E3d"):
-        tmesh.replicate(torch.nn.Sequential(conv), m)
-    with pytest.raises(NotImplementedError, match="E3d"):
-        tmesh.replicate(MultiScaleCondGlow(
-            img_size=8, x_channels=1, y_channels=3, enc_blocks=[1, 1],
-            flow_blocks=[1, 1]), m)
+    tmesh.replicate(torch.nn.Sequential(conv), m)
+    torch.testing.assert_close(conv(x), whole, rtol=1e-6, atol=1e-6)
+    # the cGlow takes the mesh; a conv without a row form raises naming it
+    tmesh.replicate(MultiScaleCondGlow(
+        img_size=8, x_channels=1, y_channels=3, enc_blocks=[1, 1],
+        flow_blocks=[1, 1]), m)
+    for bad in (torch.nn.Conv2d(1, 2, 3, padding=1),
+                Conv2d(1, 2, 3, padding=2, dilation=2),
+                Conv2d(2, 2, 3, padding=1, groups=2),
+                Conv2d(1, 2, (3, 1), padding=(1, 0))):
+        with pytest.raises(NotImplementedError,
+                           match="has no row-block form"):
+            tmesh.replicate(torch.nn.Sequential(bad), m)
     # a 5x5 Sobel reads 2 rows beyond its block: 8 blocks of 1 row raise
     with pytest.raises(ValueError, match="narrower than the operator's halo"):
         SobelFilter(8, filter_size=5).on_rows(RowShard(None, 0, 8)).halo()
@@ -282,9 +304,11 @@ def _dp_sp_refusals(mesh):
 def test_dp_sp_mesh_validation(tmp_path):
     """``dp_sp_mesh`` raises on a shape that is not the world size,
     ``batch_space_sharding`` on rows per rank that are not a multiple of
-    4; under a space mesh the finite-volume objectives, dropout, a conv
-    with a bias and another model than the DenseED raise naming ROADMAP
-    E3d, and a block narrower than the Sobel's halo raises."""
+    4 (or of the multiple asked for); under a space mesh every codec
+    objective, the supervised and eval steps, dropout (from the step's
+    generator only), a biased codec conv and the cGlow are taken, and a
+    conv without a row-block form raises naming it, as a block narrower
+    than the Sobel's halo does."""
     from pde_surrogate_torch.parallel.launch import run
     run(_dp_sp_refusals, 1, device="cpu", workdir=str(tmp_path))
 
