@@ -14,8 +14,12 @@ f32 bf16`` runs each seed twice, the second with the Decoder's convs at an
 emulated TPU DEFAULT precision (``tools/f1_tpu_precision.py``), keyed
 ``<seed>-bf16``.  Each run also reports its loss at epochs 1, 50 and 500,
 u / σ₁ / σ₂ rel-L2 at epochs 50 and 500, and how many L-BFGS epochs ended
-above the epoch before (``rises``); ``--reference-log`` adds the same
-numbers parsed from a JAX run's log.
+above the epoch before (``rises``), its Adam ms per step, its median
+seconds per L-BFGS epoch and the L-BFGS epochs' minutes;
+``--reference-log`` adds the same numbers parsed from a JAX run's log
+(a TPU run's, or ``logs/f1_jax_cpu_f32_seed1.log``: the JAX package's
+recipe in float32 on a CPU from the same start as
+``f1_jax_init_seed1.npz``).
 
 Run:  python3 -m pde_surrogate_torch.tools.f1_seeds --seeds 1 2 3 \
           --out chiprun_out/f1
@@ -23,6 +27,9 @@ Run:  python3 -m pde_surrogate_torch.tools.f1_seeds --seeds 1 2 3 \
           --init-weights pde_surrogate_torch/tools/f1_jax_init_seed1.npz \
           --conv-operands f32 bf16 \
           --reference-log logs/solve_conv_kle1024_longadam.log
+      python3 -m pde_surrogate_torch.tools.f1_seeds --seeds 1 \
+          --init-weights pde_surrogate_torch/tools/f1_jax_init_seed1.npz \
+          --reference-log logs/f1_jax_cpu_f32_seed1.log
 """
 
 from __future__ import annotations
@@ -44,19 +51,31 @@ RECIPE = ["--data", "grf", "--kle", "1024", "--idx", "8", "--epochs", "500",
 def parse_log(text: str) -> dict:
     """The warmup's loss, the last epoch's loss and the last rel-L2; the
     loss at epochs 1, 50 and 500, the rel-L2 at epochs 50 and 500, and
-    the count of epochs whose loss rose over the epoch before."""
+    the count of epochs whose loss rose over the epoch before; the Adam
+    warmup's ms per step, the median seconds of an L-BFGS epoch (the
+    port's log prints both) and the minutes of all L-BFGS epochs (both
+    packages' logs print them)."""
     warm = re.findall(r"Adam warmup \(\d+ steps\): loss ([\d.eE+-]+)", text)
     losses = {int(e): float(v) for e, v in
               re.findall(r"epoch (\d+): loss ([\d.eE+-]+)", text)}
     rel = {int(e): [float(v) for v in r.split()] for e, r in
            re.findall(r"epoch (\d+): relative l2 \[([^\]]+)\]", text)}
     seq = [losses[e] for e in sorted(losses)]
+    adam_ms = re.findall(r"Adam warmup .*, ([\d.]+) ms/step", text)
+    epoch_s = sorted(float(v) for v in
+                     re.findall(r"loss evaluations, ([\d.]+) s", text))
+    minutes = re.findall(r"Finished optimization for \d+ epochs using "
+                         r"([\d.]+) minutes", text)
     return {"adam_loss": float(warm[-1]) if warm else None,
             "final_loss": seq[-1] if seq else None,
             "rel_l2": rel[max(rel)] if rel else None,
             "loss_at": {e: losses.get(e) for e in (1, 50, 500)},
             "rel_l2_at": {e: rel.get(e) for e in (50, 500)},
-            "rises": sum(b > a for a, b in zip(seq, seq[1:]))}
+            "rises": sum(b > a for a, b in zip(seq, seq[1:])),
+            "adam_ms_per_step": float(adam_ms[-1]) if adam_ms else None,
+            "lbfgs_s_per_epoch": (epoch_s[len(epoch_s) // 2] if epoch_s
+                                  else None),
+            "lbfgs_minutes": float(minutes[-1]) if minutes else None}
 
 
 def main(argv=None) -> int:
