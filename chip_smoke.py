@@ -49,6 +49,11 @@
    import_torch_ckpt of a .pth made from the f32 Sobel run, served by
    predict_codec with the source's metrics; and the figures' note where
    matplotlib is missing, with the .txt stats written.
+   ``[tpu precision]``: one Sobel step of the DenseED at 64^2, batch 32,
+   with its convs at the emulated TPU DEFAULT precision
+   (``tools/f1_tpu_precision``) beside the f32 step from the same weights
+   and batch, both timed; ``tools/r2_breakdown`` on the Sobel run's last
+   checkpoint, its R^2 held to the CLI's within 1e-6 relative.
 7. ms per training step by CUDA events and peak memory for each objective,
    with and without the in-loss CG, the 128^2 fvcg recipe, the Sobel step
    under bf16, concat-free (f32, bf16) and remat, and the cGlow's
@@ -87,6 +92,7 @@ CUDA or a directory without the package.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
@@ -654,6 +660,7 @@ class MainPath:
             "64", "--n-monte-carlo", "64"]), needs_k1=True)
         _, sobel_run = self.train("train sobel", train, "--epochs", "2",
                                   exp="sobel", needs_k1=True)
+        self.sobel_run = sobel_run
         sobel_metrics = self.predict("predict sobel", sobel_run)
         _, fvcg_run = self.train("train fvcg", train, "--epochs", "2",
                                  "--physics", "fvcg", exp="fvcg")
@@ -1059,6 +1066,41 @@ def solver_steps():
     return [("solve_fc Adam step", _adam_step(*fc_loss_fn("cuda",
                                                           torch.float32))),
             ("solve_conv Adam step", _adam_step(*conv_solver_loss_fn("cuda")))]
+
+
+def phase_tpu_precision(path: "MainPath") -> None:
+    """One Sobel training step of DenseED [6,8,6]/16/48 at 64^2, batch 32,
+    with its convs at the emulated TPU DEFAULT precision beside the f32
+    step from the same weights and batch: both losses finite and apart by
+    more than 0 and less than 1e-2 relative; each step timed.  Then
+    ``tools/r2_breakdown`` on the main path's Sobel run: its R^2 within
+    1e-6 relative of what the CLI logged at that epoch."""
+    from pde_surrogate_torch.tools.f1_tpu_precision import tpu_default_convs
+    from pde_surrogate_torch.tools.r2_breakdown import breakdown
+    losses, ms = {}, {}
+    for name, ctx in (("f32", contextlib.nullcontext), ("tpu",
+                                                        tpu_default_convs)):
+        step = _step_fn(64, [6, 8, 6], "mixed_residual", SOBEL, {})
+        with ctx():
+            losses[name] = float(step()["loss"])
+            ms[name] = cuda_ms(step, reps=10, warmup=2)
+    rel = abs(losses["tpu"] - losses["f32"]) / abs(losses["f32"])
+    log(f"[tpu precision] first step loss f32 {losses['f32']:.6f}, emulated "
+        f"TPU DEFAULT {losses['tpu']:.6f} (relative difference {rel:.3e}); "
+        f"{ms['f32']:.3f} and {ms['tpu']:.3f} ms/step; {gpu_name_power()}")
+    check(np.isfinite(list(losses.values())).all() and 0 < rel < 1e-2,
+          f"[tpu precision] the emulated step's loss is {rel} from f32's")
+    tic = time.perf_counter()
+    res = breakdown(path.sobel_run, device="cuda")
+    u = res["channels"]["u"]
+    log(f"[tpu precision] r2_breakdown of the Sobel run, epoch "
+        f"{res['epoch']}: R2 {res['r2']}, the CLI's {res['cli_r2']} "
+        f"(largest relative difference {res['r2_rel_diff']:.2e}); u: mean "
+        f"offsets {100 * u['offset_share']:.1f} % of the SSE, half of it in "
+        f"{u['n_half']} of {res['n']} samples; "
+        f"{time.perf_counter() - tic:.2f} s")
+    check(res["cli_r2"] is not None and res["r2_rel_diff"] <= 1e-6,
+          "[tpu precision] r2_breakdown does not reproduce the CLI's R2")
 
 
 def phase_solver_step_times():
@@ -1507,6 +1549,7 @@ def main() -> int:
     try:
         path = MainPath(tmp)
         path.run()
+        phase_tpu_precision(path)
         phase_step_times()
         phase_solver_step_times()
         phase_glow_step_times()

@@ -1,0 +1,192 @@
+"""The port's R1 diagnostics on the CPU: the emulated TPU DEFAULT conv
+precision (``tools/f1_tpu_precision.py``), the per-sample split of the val
+SSE (``tools/r2_breakdown.py``) and the reading of R1's logs
+(``tools/r1_seeds.parse_log``)."""
+
+import json
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from pde_surrogate_torch.cli import train_codec_mixed_residual as train
+from pde_surrogate_torch.models import codec
+from pde_surrogate_torch.tools import f1_tpu_precision as tp
+from pde_surrogate_torch.tools import r1_seeds
+from pde_surrogate_torch.tools.r1_seeds import parse_log
+from pde_surrogate_torch.tools.r2_breakdown import breakdown
+from pde_surrogate_torch.utils.metrics import r2_score
+
+torch.set_num_threads(1)
+
+LOGS = pathlib.Path(__file__).resolve().parents[1] / "logs"
+TINY = ["--device", "cpu", "--imsize", "16", "--ntrain", "32", "--ntest",
+        "16", "--batch-size", "8", "--test-batch-size", "8", "--blocks",
+        "1,2,1", "--growth-rate", "4", "--init-features", "8", "--epochs",
+        "2", "--ckpt-freq", "1", "--no-plot"]
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def _by_hand(model):
+    """``model`` with every ``Conv2d``'s weight rounded to bf16 in place,
+    its input rounded on the way in (the gradient passing straight
+    through) and its incoming gradient rounded on the way back."""
+    for m in model.modules():
+        if isinstance(m, codec.Conv2d):
+            with torch.no_grad():
+                m.weight.copy_(_bf16(m.weight))
+            m.register_forward_pre_hook(
+                lambda _, a: (a[0] + (_bf16(a[0]) - a[0]).detach(),))
+            m.register_full_backward_pre_hook(
+                lambda _, g: (_bf16(g[0]),))
+    return model
+
+
+@pytest.mark.parametrize("train_mode", [True, False])
+def test_tpu_default_convs_rounds_every_conv_operand(train_mode):
+    """Under ``tpu_default_convs()`` the DenseED (its strided 7x7 in-conv
+    with padding 3, the convs after the nearest upsampling) gives what a
+    plain forward gives on bf16-rounded conv inputs and weights, within
+    1e-6 of the output's largest value, and so do the weight gradients
+    (the incoming gradient rounded as well); the plain f32 forward
+    differs."""
+    torch.manual_seed(0)
+    x = torch.exp(torch.randn(4, 1, 16, 16)).requires_grad_()
+    model = codec.DenseED(1, 3, 16, [1, 2, 1], growth_rate=4,
+                          init_features=8).train(train_mode)
+    hand = codec.DenseED(1, 3, 16, [1, 2, 1], growth_rate=4,
+                         init_features=8).train(train_mode)
+    hand.load_state_dict(model.state_dict())
+    _by_hand(hand)
+    plain = model(x)
+    with tp.tpu_default_convs():
+        got = model(x)
+        got.square().sum().backward()
+    want = hand(x)
+    want.square().sum().backward()
+    scale = want.abs().max()
+    assert (got - want).abs().max() <= 1e-6 * scale
+    assert (plain - want).abs().max() > 1e-4 * scale
+    grads = {n: p.grad for n, p in hand.named_parameters() if "conv" in n}
+    assert grads
+    for n, p in model.named_parameters():
+        if n in grads:
+            g = grads[n]
+            assert (p.grad - g).abs().max() <= 1e-6 * g.abs().max(), n
+
+
+def test_tpu_default_convs_restores_the_plain_forward():
+    """On exit, also after an exception and after a refused row block,
+    ``Conv2d.forward`` is the plain one again."""
+    plain = codec.Conv2d.forward
+    with tp.tpu_default_convs():
+        assert codec.Conv2d.forward is not plain
+    assert codec.Conv2d.forward is plain
+    with pytest.raises(RuntimeError, match="inside"):
+        with tp.tpu_default_convs():
+            raise RuntimeError("inside")
+    assert codec.Conv2d.forward is plain
+    conv = codec.Conv2d(1, 1, 3, padding=1, bias=False)
+    conv.rows = object()
+    with pytest.raises(ValueError, match="whole fields"):
+        with tp.tpu_default_convs():
+            conv(torch.ones(1, 1, 4, 4))
+    assert codec.Conv2d.forward is plain
+    with pytest.raises(SystemExit):
+        tp.main(["--cli", "bogus"])
+
+
+@pytest.mark.parametrize("precision", ["f32", "tpuprec"])
+def test_r2_breakdown_reproduces_the_cli(tmp_path, precision):
+    """On a run the codec CLI writes at 16² (2 epochs; under
+    ``tools/f1_tpu_precision.py --cli codec`` for ``tpuprec``):
+    ``r2_breakdown``'s mean-offset and remaining SSE sum to each sample's
+    SSE within 1e-6 relative, its R² is ``r2_score`` of its SSE and
+    equals the CLI's last epoch's within 1e-6 relative, and its largest
+    samples are listed by SSE."""
+    argv = TINY + ["--data-dir", str(tmp_path / "d"),
+                   "--exp-dir", str(tmp_path / "e")]
+    if precision == "f32":
+        train.main(argv)
+    else:
+        tp.main(["--cli", "codec", *argv])
+    (run_dir,) = [p.parent for p in (tmp_path / "e").rglob("args.txt")]
+    res = breakdown(str(run_dir), device="cpu",
+                    tpu_precision=precision == "tpuprec")
+    s = res["samples"]
+    assert res["epoch"] == 2 and res["n"] == 16
+    np.testing.assert_allclose(s["offset"] + s["rest"], s["sse"], rtol=1e-6)
+    yvar = np.array([ch["y_variation"] for ch in res["channels"].values()])
+    np.testing.assert_allclose(res["r2"], r2_score(
+        s["sse"].sum(0), yvar), rtol=1e-6)
+    np.testing.assert_allclose(res["r2"], res["cli_r2"], rtol=1e-6)
+    assert res["r2_rel_diff"] <= 1e-6
+    for c, ch in enumerate(res["channels"].values()):
+        np.testing.assert_allclose(ch["offset_sse"] + ch["rest_sse"],
+                                   ch["sse"], rtol=1e-6)
+        top = [t["index"] for t in ch["top"]]
+        assert top == list(np.argsort(-s["sse"][:, c], kind="stable")[:10])
+        assert 1 <= ch["n_half"] <= 16
+        assert all(0 <= t["log_k_rank"] < 16 for t in ch["top"])
+
+
+def test_r2_breakdown_ranks_the_canonical_val_fields():
+    """``--val-ranks`` regenerates the canonical val split's inputs
+    (kle512 at 64², 512 fields, the CLI's seed) and ranks the fields by
+    mean log K: the three that carry most of u's val SSE in R1 (fields
+    138, 38 and 28) are its three lowest, the one that leads σ₁'s (486)
+    its highest."""
+    from pde_surrogate_torch.tools.r2_breakdown import main
+    got = main(["--val-ranks", "138", "38", "28", "486"])
+    assert [got[i][1] for i in (138, 38, 28, 486)] == [0, 1, 2, 511]
+    assert got[138][0] < got[38][0] < got[28][0] < 0 < got[486][0]
+
+
+def test_r1_seeds_runs_side_by_side(tmp_path, capsys, monkeypatch):
+    """``tools/r1_seeds.py`` at 16² (2 epochs): an f32 and an emulated
+    run side by side on one data dir, each log named by its precision and
+    seed and parsed, the emulated one's breakdown written with the CLI's
+    R² reproduced."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")     # the runs' processes
+    rc = r1_seeds.main(["--device", "cpu", "--runs", "f32:3", "tpuprec:3",
+                        "--breakdown", "tpuprec:3", "--out", str(tmp_path),
+                        "--extra", *TINY[2:]])
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    runs = got["r1_seeds"]
+    assert rc == 0 and set(runs) == {"r1_port_f32_seed3",
+                                     "r1_port_tpuprec_seed3"}
+    for name, run in runs.items():
+        assert run["rc"] == 0 and run["epochs"] == 2, name
+        assert len(run["r2"]) == 3 and run["minutes"] is not None
+    assert runs["r1_port_tpuprec_seed3"]["breakdown_rc"] == 0
+    assert runs["r1_port_f32_seed3"]["r2"] != runs[
+        "r1_port_tpuprec_seed3"]["r2"]
+    text = (tmp_path / "r1_port_tpuprec_seed3_breakdown.log").read_text()
+    assert "largest relative difference 0.00e+00" in text
+    assert (tmp_path / "r1_port_tpuprec_seed3.log").read_text().startswith(
+        "DenseED convs: bf16-rounded operands")
+
+
+@pytest.mark.parametrize("log", ["canon_kle512_300ep_r4.log",
+                                 "sharedstats_kle512_300ep.log"])
+def test_r1_seeds_parses_the_band_logs(log):
+    """``tools/r1_seeds.parse_log`` reads the JAX package's two canonical
+    TPU runs (the band) as the records quote them."""
+    got = parse_log((LOGS / log).read_text())
+    assert got["epochs"] == 300 and got["selected_epoch"] == 300
+    if log.startswith("canon"):
+        assert got["r2"] == [0.9671568, 0.9547219, 0.8555239]
+        assert got["u_r2_last20"] == [0.96441114, 0.96942914]
+        assert got["loss_at"][200] == 0.134317
+        assert got["loss_at"][300] == 0.048535
+        assert got["consistency"] == 0.0772 and got["rises_1p5"] == 2
+        assert got["minutes"] == 24.62
+    else:
+        assert got["r2"] == [0.9568631, 0.95342135, 0.8568643]
+        assert got["rel_l2"] == [0.0279729, 0.10889454, 0.35680166]
+        assert got["loss_at"][300] == 0.05024 and got["rises_1p5"] == 6
+        assert got["median_samples_per_s"] == 4729.0
