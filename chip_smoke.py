@@ -57,8 +57,10 @@
 7. ms per training step by CUDA events and peak memory for each objective,
    with and without the in-loss CG, the 128^2 fvcg recipe, the Sobel step
    under bf16, concat-free (f32, bf16) and remat, and the cGlow's
-   reverse-KL step (sobel, fvcg); kernel launches and device busy time of
-   one step from torch.profiler, and its conv and matmul FLOPs.
+   reverse-KL step (sobel, fvcg) and the canonical cGlow's (enc
+   [3,3,3,3], flow [4,4,4,4], sobel; ``[step] cglow canonical``); kernel
+   launches and device busy time of one step from torch.profiler, and its
+   conv and matmul FLOPs.
 8. ``[dist]``, in a one-rank NCCL group: the DenseED and cGlow training
    steps at full width under the data mesh (BatchNorm moments reduced over
    it, gradients all-reduced) against the plain steps, 3 steps in float64
@@ -534,15 +536,16 @@ def phase_codec_variants():
         f"{steps['bf16']['peak_mib']:.1f} MiB")
 
 
-def glow_step_fn(physics: str, n_cg: int | None):
-    """One reverse-KL step of the reference-width cGlow at 64^2 on a batch
-    of 32 kle512 fields (f32, TF32 off, NaN guard on)."""
+def glow_step_fn(physics: str, n_cg: int | None, enc=(3, 4, 4),
+                 flow=(6, 6, 6)):
+    """One reverse-KL step of the cGlow (default: the reference width) at
+    64^2 on a batch of 32 kle512 fields (f32, TF32 off, NaN guard on)."""
     from pde_surrogate_torch.data.grf import sample_kle
     from pde_surrogate_torch.ops.filters import SobelFilter
     from pde_surrogate_torch.tools.glow_check import glow_model
     from pde_surrogate_torch.train.glow_trainer import (create_glow_state,
                                                         make_reverse_kl_step)
-    model = glow_model(64, [3, 4, 4], [6, 6, 6], 1e-3, "cuda")
+    model = glow_model(64, list(enc), list(flow), 1e-3, "cuda")
     state = create_glow_state(model, lr_max=1.5e-3, total_steps=1000, seed=1)
     step = make_reverse_kl_step(state, SobelFilter(64), 150.0, 50.0,
                                 3 * 64 * 64, physics=physics,
@@ -567,6 +570,23 @@ def phase_glow_step_times():
             f"64^2 batch 32 f32: {ms:.3f} ms/step ({32 / ms * 1e3:.1f} "
             f"samples/s), peak memory {peak:.1f} MiB")
         del fn
+
+
+def phase_glow_canonical_step():
+    """ms per reverse-KL step (CUDA events, 10 steps after 3 warm-up
+    steps) and peak device memory of R3's canonical cGlow (enc [3,3,3,3],
+    flow [4,4,4,4], the JAX package's 200-epoch kle512 run at 64^2),
+    Sobel, and what 200 epochs of 256 steps take at that rate."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fn = glow_step_fn("sobel", None, enc=(3, 3, 3, 3), flow=(4, 4, 4, 4))
+    ms = cuda_ms(fn, reps=10, warmup=3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    log(f"[step] cglow canonical: enc [3,3,3,3] flow [4,4,4,4] 64^2 batch "
+        f"32 sobel f32: {ms:.3f} ms/step ({32 / ms * 1e3:.1f} samples/s), "
+        f"peak memory {peak:.1f} MiB; 51200 steps at this rate "
+        f"{51200 * ms / 6e4:.1f} min")
+    del fn
 
 
 class MainPath:
@@ -1553,6 +1573,7 @@ def main() -> int:
         phase_step_times()
         phase_solver_step_times()
         phase_glow_step_times()
+        phase_glow_canonical_step()
         phase_step_profile()
         phase_dist(path)
         phase_dpsp(path)

@@ -878,6 +878,51 @@ def test_cglow_resume_matches_uninterrupted(tmp_path):
                                    atol=1e-6, msg=k)
 
 
+@pytest.mark.parametrize("physics", ["sobel", "fvcg"])
+def test_codec_resume_matches_uninterrupted(tmp_path, capsys, physics):
+    """The codec CLI resumed from epoch 1 (``--ckpt-epoch 1``, the
+    checkpoint of an uninterrupted run copied into a fresh exp dir) ends
+    where the uninterrupted 2-epoch run ends: the weights and BN stats
+    within 1e-6, the same history for the label-free checkpoint selection
+    (the last checkpoint's ``ckpt_consistency``, and its loss and R^2
+    lists) and the same selected epoch.  The batches are a function of
+    (seed, epoch) and the checkpoint holds Adam, the step count and the BN
+    stats."""
+    extra = ("--epochs", "2", "--physics", physics)
+    _, run = _tiny_run(t_train.main, tmp_path / "full", tmp_path / "d",
+                       *extra)
+    full_out = capsys.readouterr().out
+    rel = run.relative_to(tmp_path / "full")
+    ckpt = tmp_path / "resumed" / rel / "checkpoints"
+    ckpt.mkdir(parents=True)
+    for ext in ("pt", "json"):
+        name = f"model_epoch1.{ext}"
+        (ckpt / name).write_bytes((run / "checkpoints" / name).read_bytes())
+    (state, _), run2 = _tiny_run(t_train.main, tmp_path / "resumed",
+                                 tmp_path / "d", *extra, "--ckpt-epoch", "1")
+    resumed_out = capsys.readouterr().out
+    assert "Loaded ckpt at epoch 1; resume from 2 to 2" in resumed_out
+    assert state.step == 4
+    for k, v in _weights(run, 2).items():
+        torch.testing.assert_close(state.model.state_dict()[k], v, rtol=0,
+                                   atol=1e-6, msg=k)
+    metas = [json.loads((r / "checkpoints" / "model_epoch2.json").read_text())
+             for r in (run, run2)]
+    hist = [dict(m["ckpt_consistency"]) for m in metas]
+    assert list(hist[0]) == list(hist[1]) == [1, 2]
+    np.testing.assert_allclose(list(hist[1].values()),
+                               list(hist[0].values()), rtol=1e-6)
+    for key in ("loss_train", "r2_test", "consistency_test"):
+        np.testing.assert_allclose(metas[1]["logger"][key],
+                                   metas[0]["logger"][key], rtol=1e-6)
+    selected = [[line for line in out.splitlines()
+                 if line.startswith("Label-free checkpoint selection")]
+                for out in (full_out, resumed_out)]
+    assert len(selected[0]) == 1
+    assert (selected[0][0].split(": epoch ")[1].split()[0]
+            == selected[1][0].split(": epoch ")[1].split()[0])
+
+
 @pytest.mark.parametrize("cli", [t_glow, t_pglow, t_post],
                          ids=["train", "predict", "post"])
 def test_cglow_clis_default_to_cuda(tmp_path, cli):

@@ -33,6 +33,19 @@ cores, whose float32 sums XLA orders differently):
 The JAX side gave the same numbers on 1, 4 and 8 cores: at this size
 XLA splits no sum over threads.
 
+The recommended objective, ``--physics fvcg`` (``test_codec_recipe_fvcg_
+matches_jax``): the same loop with the CG-preconditioned error objective
+at the CLIs' ``--fvcg-iters`` default, the grid size (16 CG iterations),
+unrolled under autograd in both packages, in the train steps and the
+evals.  Its field is seed 2, by the rule of "Why seed 1": on seed 1 the port's
+float64 fvcg loop moves by 1.4e-6 to 2.5e-6 under the three 1e-7
+perturbations, on seed 2 by 3.1e-7 to 8.2e-7.  Bounds, each about 3x the
+JAX package's float32 distance from the port's float64 run (measured on
+1, 4 and 8 cores, the largest given): steps 1e-5 (3.35e-6), evals 6e-6
+(1.86e-6), parameters 2.5e-5 (7.74e-6), BatchNorm statistics 9e-6
+(2.97e-6); the port's float32 run lies 7.9e-7, 2.1e-7, 2.2e-6 and 4.9e-7
+from its float64 run.  The fvcg loop takes ~6 s on one core.
+
 Why seed 1.  Adam's first steps divide by the gradient's own size, so a
 rounding in a small gradient moves its parameter by a share of the lr;
 under train-mode BatchNorm the objective also has ReLU kinks, and a
@@ -79,6 +92,9 @@ OPT = dict(lr_max=1e-3, total_steps=EPOCHS * (NTRAIN // BATCH),
 WEIGHT_BOUND = 10.0
 LOSSES = ("loss", "loss_pde", "loss_dirichlet", "loss_neumann")
 BOUNDS = {"steps": 3e-5, "evals": 5e-6, "params": 7e-5, "stats": 4e-6}
+FVCG_SEED = 2
+FVCG_BOUNDS = {"steps": 1e-5, "evals": 6e-6, "params": 2.5e-5,
+               "stats": 9e-6}
 
 
 class _Drawn:
@@ -110,9 +126,10 @@ class _Drawn:
 class _Loop:
     """The data, the batch order and both packages' 12 steps and 3 evals."""
 
-    def __init__(self, tmp_dir):
+    def __init__(self, tmp_dir, physics="sobel", k_seed=K_SEED):
+        self.physics = physics
         k = sample_kle(NTRAIN + NVAL, IMSIZE, 512,
-                       rng=np.random.default_rng(K_SEED))
+                       rng=np.random.default_rng(k_seed))
         self.x = k[:NTRAIN, None].astype(np.float32)
         x_val = k[NTRAIN:].astype(np.float32)
         y_val = solve_darcy_batch_fast(torch.from_numpy(x_val)).numpy()
@@ -122,7 +139,7 @@ class _Loop:
                                  return_stats=True)
         self.j_val = j_load_data(val, NVAL, only_input=False,
                                  return_stats=True)
-        self.perms = [np.random.default_rng([K_SEED, e]).permutation(NTRAIN)
+        self.perms = [np.random.default_rng([k_seed, e]).permutation(NTRAIN)
                       for e in range(1, EPOCHS + 1)]
         self.jm = JDenseED(1, 3, imsize=IMSIZE, blocks=BLOCKS,
                            growth_rate=GROWTH, init_features=FEATURES,
@@ -142,8 +159,10 @@ class _Loop:
         state, tx = jtr.create_state(self.drawn, jax.random.key(0), None,
                                      **OPT)
         sobel = JSobel(IMSIZE, correct=True, filter_size=3)
-        step = jtr.make_mixed_residual_step(self.jm, tx, sobel, WEIGHT_BOUND)
-        evaluate = jtr.make_eval_step(self.jm, sobel, WEIGHT_BOUND)
+        step = jtr.make_mixed_residual_step(self.jm, tx, sobel, WEIGHT_BOUND,
+                                            physics=self.physics)
+        evaluate = jtr.make_eval_step(self.jm, sobel, WEIGHT_BOUND,
+                                      physics=self.physics)
         x_val, y_val, stats = self.j_val
         steps, evals = [], []
         for epoch in range(EPOCHS):
@@ -171,8 +190,10 @@ class _Loop:
         model.to(dtype)
         state = ttr.create_state(model, **OPT)
         sobel = TSobel(IMSIZE, correct=True, filter_size=3)
-        step = ttr.make_mixed_residual_step(state, sobel, WEIGHT_BOUND)
-        evaluate = ttr.make_eval_step(state, sobel, WEIGHT_BOUND)
+        step = ttr.make_mixed_residual_step(state, sobel, WEIGHT_BOUND,
+                                            physics=self.physics)
+        evaluate = ttr.make_eval_step(state, sobel, WEIGHT_BOUND,
+                                      physics=self.physics)
         x_val, y_val, stats = self.t_val
         x_val = torch.from_numpy(x_val).to(dtype)
         y_val = torch.from_numpy(y_val).to(dtype)
@@ -212,12 +233,12 @@ def _state_errs(got: dict, want: dict) -> dict:
     return errs
 
 
-def _assert_close(got: dict, want: dict):
+def _assert_close(got: dict, want: dict, bounds: dict = BOUNDS):
     assert got["count"] == want["count"] == OPT["total_steps"]
-    assert _rel(got["steps"], want["steps"]) <= BOUNDS["steps"]
-    assert _rel(got["evals"], want["evals"]) <= BOUNDS["evals"]
+    assert _rel(got["steps"], want["steps"]) <= bounds["steps"]
+    assert _rel(got["evals"], want["evals"]) <= bounds["evals"]
     for kind, err in _state_errs(got["state"], want["state"]).items():
-        assert err <= BOUNDS[kind], (kind, err)
+        assert err <= bounds[kind], (kind, err)
 
 
 @pytest.fixture(scope="module")
@@ -225,23 +246,38 @@ def loop(tmp_path_factory):
     return _Loop(tmp_path_factory.mktemp("codec_recipe"))
 
 
-@pytest.mark.parametrize("case", ["steps", "evals", "state", "port_f32"])
-def test_codec_recipe_matches_jax(loop, case):
+@pytest.fixture(scope="module")
+def fvcg_loop(tmp_path_factory):
+    return _Loop(tmp_path_factory.mktemp("codec_recipe_fvcg"),
+                 physics="fvcg", k_seed=FVCG_SEED)
+
+
+def _check(loop, case: str, bounds: dict):
     j, ref = loop.jax, loop.port[torch.float64]
     if case == "steps":
-        assert _rel(j["steps"], ref["steps"]) <= BOUNDS["steps"]
+        assert _rel(j["steps"], ref["steps"]) <= bounds["steps"]
         # the loop trains: the OneCycle run ends below its first loss
         assert j["steps"][-1, 0] < j["steps"][0, 0]
     elif case == "evals":
-        assert _rel(j["evals"], ref["evals"]) <= BOUNDS["evals"]
+        assert _rel(j["evals"], ref["evals"]) <= bounds["evals"]
         assert not np.array_equal(j["evals"][0], j["evals"][-1])
     elif case == "state":
         assert j["count"] == ref["count"] == OPT["total_steps"]
         for kind, err in _state_errs(j["state"], ref["state"]).items():
-            assert err <= BOUNDS[kind], (kind, err)
+            assert err <= bounds[kind], (kind, err)
         moved = {k: float((ref["state"][k] - v.double()).abs().max())
                  for k, v in loop.start.items()
                  if not k.endswith("num_batches_tracked")}
         assert min(moved.values()) > 1e-4       # every tensor trained
     else:
-        _assert_close(loop.port[torch.float32], ref)
+        _assert_close(loop.port[torch.float32], ref, bounds)
+
+
+@pytest.mark.parametrize("case", ["steps", "evals", "state", "port_f32"])
+def test_codec_recipe_matches_jax(loop, case):
+    _check(loop, case, BOUNDS)
+
+
+@pytest.mark.parametrize("case", ["steps", "evals", "state", "port_f32"])
+def test_codec_recipe_fvcg_matches_jax(fvcg_loop, case):
+    _check(fvcg_loop, case, FVCG_BOUNDS)

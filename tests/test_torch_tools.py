@@ -1,7 +1,9 @@
-"""The port's R1 diagnostics on the CPU: the emulated TPU DEFAULT conv
-precision (``tools/f1_tpu_precision.py``), the per-sample split of the val
-SSE (``tools/r2_breakdown.py``) and the reading of R1's logs
-(``tools/r1_seeds.parse_log``)."""
+"""The port's diagnostics of its canonical runs on the CPU: the emulated
+TPU DEFAULT conv precision (``tools/f1_tpu_precision.py``), the per-sample
+split of the val SSE (``tools/r2_breakdown.py``), the reading of R1's logs
+(``tools/r1_seeds.parse_log``), and the runner of R2 and R3
+(``tools/canon_runs.py``): side by side, stopped and resumed, and its
+reading of the JAX package's bar logs."""
 
 import json
 import pathlib
@@ -12,6 +14,7 @@ import torch
 
 from pde_surrogate_torch.cli import train_codec_mixed_residual as train
 from pde_surrogate_torch.models import codec
+from pde_surrogate_torch.tools import canon_runs
 from pde_surrogate_torch.tools import f1_tpu_precision as tp
 from pde_surrogate_torch.tools import r1_seeds
 from pde_surrogate_torch.tools.r1_seeds import parse_log
@@ -190,3 +193,124 @@ def test_r1_seeds_parses_the_band_logs(log):
         assert got["rel_l2"] == [0.0279729, 0.10889454, 0.35680166]
         assert got["loss_at"][300] == 0.05024 and got["rises_1p5"] == 6
         assert got["median_samples_per_s"] == 4729.0
+
+
+CANON_CGLOW = ("--imsize 16 --enc-blocks 2,2,2 --flow-blocks 2,2,2 "
+               "--ntrain 16 --ntest 8 --batch-size 8 --test-batch-size 8 "
+               "--epochs 2 --ckpt-freq 1")
+CANON_POST = ("--n-monte-carlo 16 --ntest 8 --var-samples 2 --n-pred 1 "
+              "--num-loc 1")
+CANON_TINY = ["--device", "cpu", "--codec-extra", " ".join(TINY[2:]),
+              "--cglow-extra", CANON_CGLOW, "--post-extra", CANON_POST]
+
+
+def _canon(tmp_path, capsys, *argv, work="work"):
+    rc = canon_runs.main([*CANON_TINY, "--out", str(tmp_path / "out"),
+                          "--work", str(tmp_path / work), *argv])
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    return rc, got["canon_runs"]
+
+
+def test_canon_runs_side_by_side(tmp_path, capsys, monkeypatch):
+    """``tools/canon_runs.py`` at 16² (2 epochs): an fvcg codec run and a
+    cGlow run side by side, each log named by its kind and seed and
+    parsed, the fvcg run's breakdown written with the CLI's R² reproduced,
+    the cGlow's UQ suite run on its last checkpoint and parsed (every task
+    timed), and the finished runs' checkpoints removed."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")     # the runs' processes
+    rc, runs = _canon(tmp_path, capsys, "--runs", "fvcg:3", "cglow:3",
+                      "--breakdown", "fvcg:3")
+    assert rc == 0
+    assert set(runs) == {"r2_port_fvcg_seed3", "r3_port_cglow_seed3"}
+    fvcg, glow = runs["r2_port_fvcg_seed3"], runs["r3_port_cglow_seed3"]
+    assert fvcg["train_rc"] == 0 and fvcg["epochs"] == 2
+    assert fvcg["selected_epoch"] in (1, 2) and len(fvcg["r2"]) == 3
+    assert fvcg["breakdown_rc"] == 0
+    assert glow["epochs"] == 2 and glow["skipped_steps"] == 0
+    assert glow["train_rc"] == glow["post_rc"] == 0
+    assert glow["minutes"] is not None and glow["median_samples_per_s"] > 0
+    post = glow["post"]
+    assert post["num_nan_inf"] == 0 and len(post["r2"]) == 3
+    assert set(post["seconds"]) == {"predict_at_x", "dist", "test_metric",
+                                    "reliability", "propagate"}
+    out = tmp_path / "out"
+    text = (out / "r2_port_fvcg_seed3_breakdown.log").read_text()
+    assert "largest relative difference 0.00e+00" in text
+    assert "--physics fvcg" not in text
+    assert '"physics": "fvcg"' in next(
+        (tmp_path / "work").rglob("args.txt")).read_text()
+    assert (out / "r3_port_cglow_seed3_metrics.jsonl").is_file()
+    assert not list((tmp_path / "work").rglob("*.pt"))
+
+
+def test_canon_runs_stop_and_resume(tmp_path, capsys, monkeypatch):
+    """An fvcg and a cGlow run of 10 epochs, stopped right after the first
+    checkpoint at or after epoch 1 that the runner sees (``--stop-after
+    1``; it looks every ``POLL_S``, so a tiny run may be a few epochs on):
+    each log ends in the stop line, the cGlow keeps only that checkpoint.
+    Resumed in a second call from a copy of the first call's work dir
+    (``--resume-from``), each ends at epoch 10 with its log in two parts,
+    the cGlow's UQ suite run on its last checkpoint, and the fvcg run as
+    the unbroken run ends (the same last R² and rel-L2)."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    codec = " ".join(TINY[2:]).replace("--epochs 2", "--epochs 10")
+    argv = ["--codec-extra", codec, "--cglow-extra",
+            CANON_CGLOW.replace("--epochs 2", "--epochs 10")]
+    names = ("r2_port_fvcg_seed4", "r3_port_cglow_seed4")
+    rc, first = _canon(tmp_path, capsys, "--runs", "fvcg:4", "cglow:4",
+                       *argv, "--stop-after", "1", work="w1")
+    assert rc == 0
+    for name in names:
+        run = first[name]
+        assert run["stopped"] == "train"
+        assert 1 <= run["stopped_after"] < 10
+        log = (tmp_path / "out" / f"{name}.log").read_text()
+        assert (f"[canon_runs] stopped after epoch {run['stopped_after']}; "
+                f"epochs 1-{run['stopped_after']} took") in log
+    assert first[names[1]]["minutes"] is not None
+    assert (tmp_path / "out" / f"{names[1]}_metrics.jsonl").is_file()
+    stop = first[names[1]]["stopped_after"]
+    (ckpts,) = [p for p in (tmp_path / "w1").rglob("checkpoints")
+                if "cglow" in str(p)]
+    assert sorted(p.name for p in ckpts.iterdir()) == [
+        f"model_epoch{stop}.json", f"model_epoch{stop}.pt"]
+    rc, resumed = _canon(tmp_path, capsys, "--runs", "fvcg:4", "cglow:4",
+                         *argv, "--resume-from", str(tmp_path / "w1"),
+                         work="w2")
+    assert rc == 0
+    for name in names:
+        (ckpts,) = [p for p in (tmp_path / "w1").rglob("checkpoints")
+                    if name.split("_")[2] in str(p)]
+        assert max(int(p.stem[11:]) for p in ckpts.iterdir()) == \
+            first[name]["stopped_after"], name
+        assert resumed[name]["epochs"] == 10, name
+        assert resumed[name]["parts"] == 2, name
+    assert resumed[names[1]]["post"]["num_nan_inf"] == 0
+    rc, whole = _canon(tmp_path / "whole", capsys, "--runs", "fvcg:4",
+                       *argv, work="w3")
+    got, want = resumed[names[0]], whole[names[0]]
+    assert rc == 0 and "parts" not in want
+    np.testing.assert_allclose(got["r2"], want["r2"], rtol=1e-6)
+    np.testing.assert_allclose(got["rel_l2"], want["rel_l2"], rtol=1e-6)
+
+
+@pytest.mark.parametrize("log,want", [
+    ("fvcg2_kle512_300ep.log",
+     {"epochs": 300, "r2": [0.9853437, 0.9919974, 0.9700538],
+      "rel_l2": [0.02094203, 0.04194181, 0.16950744],
+      "consistency": 0.0286, "selected_epoch": 300, "minutes": 23.34}),
+    ("cglow_kle512_im64_canonical_200ep.log",
+     {"epochs": 200, "r2": [0.98463094, 0.9841795, 0.9191243],
+      "rel_l2": [0.01965215, 0.06463943, 0.26084864],
+      "neg_entropy": 7.680119, "skipped_steps": 0, "nonfinite_epochs": 0,
+      "selected_epoch": 200, "minutes": 56.46}),
+    ("post_cglow_kle512_canonical.log",
+     {"r2": [0.98485523, 0.98416805, 0.9190837],
+      "rel_l2": [0.01952975, 0.06485741, 0.26111066],
+      "num_nan_inf": 0, "abnormal_rate": 0.0}),
+])
+def test_canon_runs_parses_the_bar_logs(log, want):
+    """``tools/canon_runs.parse_file`` reads the JAX package's R2 and R3
+    bars (TPU runs) as the records quote them."""
+    got = canon_runs.parse_file(str(LOGS / log))
+    assert {k: got[k] for k in want} == want
