@@ -12,9 +12,21 @@ Kinds of ``--runs <kind>:<seed>``:
   the last epoch's checkpoint (``..._breakdown.log``).
 * ``cglow``: ``cli.train_cglow_reverse_kl`` with the JAX package's
   canonical flags (``CGLOW``), then ``cli.post_cglow`` with ``POST`` on
-  its last checkpoint; logs ``r3_port_cglow_seed<seed>.log`` (its
-  ``training/metrics.jsonl`` beside it as ``..._metrics.jsonl``) and
-  ``r3_port_post_cglow_seed<seed>.log``.
+  its last checkpoint, then ``tools/glow_check.py --checkpoint`` on it
+  (ROADMAP F2: the trained heads, the card against the CPU and float64);
+  logs ``r3_port_cglow_seed<seed>.log`` (its ``training/metrics.jsonl``
+  beside it as ``..._metrics.jsonl``), ``r3_port_post_cglow_seed<seed>.log``
+  and ``r3_port_glow_check_seed<seed>.log``.
+
+``--tag T`` ends every log name of the call in ``_T``
+(``r3_port_cglow_seed1_full.log``).
+
+On the card, ``nvidia-smi`` samples the card every ``MONITOR_S`` seconds
+while the runs last: each sample, with the host's ``/proc/loadavg`` and
+the run's phase and epoch, is appended to ``<out>/<run>_monitor.csv``
+(``MONITOR_HEADER``), and ``parse_log`` reads it per range of 25 epochs
+beside the samples/s.  A failing ``nvidia-smi`` ends the call with an
+error.
 
 Only ``--seed`` is added to a recipe.  The codec runs share one data dir
 and the cGlow runs another (the cGlow's 8192-field train split is another
@@ -26,8 +38,8 @@ earlier call's ``--work`` comes in by ``--resume-from``).  A run whose
 exp dir holds a checkpoint resumes from the latest (the codec by
 ``--ckpt-epoch``, the cGlow by ``--resume``) and appends to its log.  With
 ``--deadline-min M`` a run stops right after a checkpoint that its CLI
-writes under its default ``--ckpt-freq`` (100 for the codec, 25 for the
-cGlow) when, at its pace so far, the next one would come after M minutes
+writes under its ``--ckpt-freq`` (by default 100 for the codec, 25 for
+the cGlow) when, at its pace so far, the next one would come after M minutes
 of this call; what still runs at M minutes is stopped there and resumes
 from its last checkpoint (``--stop-after E`` stops each run after its
 first checkpoint at or after epoch E instead).  A stopped part ends its
@@ -36,8 +48,8 @@ which ``parse_log`` adds to the minutes of the run. An unfinished cGlow
 run keeps only its latest checkpoint, a finished run of either kind none,
 so ``--work`` stays small enough to carry between calls.
 
-One JSON line at the end holds ``parse_log`` of every run and
-``parse_post_log`` of every UQ suite; ``--parse`` only reads logs (the JAX
+One JSON line at the end holds ``parse_log`` of every run,
+``parse_post_log`` of every UQ suite and glow_check's numbers; ``--parse`` only reads logs (the JAX
 package's too: a ``post_cglow`` log by its name) and prints that line.
 
 Run:  python3 -m pde_surrogate_torch.tools.canon_runs --runs fvcg:1 fvcg:2 \
@@ -50,6 +62,8 @@ Run:  python3 -m pde_surrogate_torch.tools.canon_runs --runs fvcg:1 fvcg:2 \
 from __future__ import annotations
 
 import argparse
+import csv
+import io
 import json
 import os
 import re
@@ -76,11 +90,64 @@ POST = ["--n-monte-carlo", "10000", "--ntest", "512", "--batch-size", "64"]
 KINDS = {"fvcg": ("r2_port_fvcg", CODEC, ["--physics", "fvcg"]),
          "cglow": ("r3_port_cglow", GLOW, CGLOW)}
 POLL_S = 0.5            # seconds between looks at the runs' logs
+MONITOR_S = 30.0        # seconds between samples of the card
+SMI_FIELDS = ("timestamp,clocks.sm,clocks.mem,power.draw,utilization.gpu,"
+              "temperature.gpu,clocks_throttle_reasons.active")
+MONITOR_HEADER = ("phase,epoch," + SMI_FIELDS
+                  + ",load1,load5,load15,tasks,last_pid")
+EPOCH_RANGE = 25        # epochs per range of the monitor's medians
 STOPPED = re.compile(rf"\[canon_runs\] stopped after epoch (\d+); epochs "
                      rf"\d+-\d+ took ({_NUM}) min")
 
 
-def parse_log(text: str, metrics: list[dict] | None = None) -> dict:
+def _lead_number(field: str) -> float | None:
+    """``1980 MHz`` -> 1980.0; ``[N/A]`` -> None."""
+    m = re.match(_NUM, field.strip())
+    return float(m.group(0)) if m else None
+
+
+def _epoch_range(epoch: int) -> str:
+    lo = (epoch - 1) // EPOCH_RANGE * EPOCH_RANGE + 1
+    return f"{lo}-{lo + EPOCH_RANGE - 1}"
+
+
+def parse_monitor(text: str, metrics: list[dict] | None = None) -> dict:
+    """From a ``<run>_monitor.csv``: per range of 25 training epochs (and
+    per follow-up phase), the median SM clock (MHz), GPU utilisation (%),
+    power (W) and host 1-minute load, the throttle reasons seen (hex masks
+    other than 0) and the number of samples; with ``metrics`` (the cGlow's
+    records) the range's median samples/s too."""
+    groups: dict[str, list[list[str]]] = {}
+    for row in csv.reader(io.StringIO(text), skipinitialspace=True):
+        if len(row) < 10 or row[0] == "phase":
+            continue
+        phase, epoch = row[0], int(row[1])
+        groups.setdefault(_epoch_range(epoch) if phase == "train" else phase,
+                          []).append(row)
+
+    def med(rows, i):
+        vals = [v for r in rows if (v := _lead_number(r[i])) is not None]
+        return float(np.median(vals)) if vals else None
+    out = {key: {"sm_mhz": med(rows, 3), "util_pct": med(rows, 6),
+                 "power_w": med(rows, 5), "load1": med(rows, 9),
+                 "throttle": sorted({r[8] for r in rows
+                                     if r[8].startswith("0x")
+                                     and int(r[8], 16)}),
+                 "samples": len(rows)}
+           for key, rows in groups.items()}
+    for m in metrics or []:
+        key = _epoch_range(m["epoch"])
+        if key in out:
+            out[key].setdefault("_rates", []).append(m["samples_per_sec"])
+    for v in out.values():
+        rates = v.pop("_rates", None)
+        if metrics is not None:
+            v["samples_per_s"] = float(np.median(rates)) if rates else None
+    return out
+
+
+def parse_log(text: str, metrics: list[dict] | None = None,
+              monitor: str | None = None) -> dict:
     """From a codec or cGlow training log of either package (a resumed
     run's parts too): R^2 and rel-L2 at the last epoch, with the codec's
     flux-pressure consistency or the cGlow's neg entropy; the selected
@@ -90,7 +157,15 @@ def parse_log(text: str, metrics: list[dict] | None = None) -> dict:
     rose above 1.5x the epoch before; the cGlow's skipped non-finite steps
     and non-finite epoch losses; the minutes of training over every part
     and the median samples/s (the codec's log lines; the cGlow's
-    ``metrics``, its ``training/metrics.jsonl`` records)."""
+    ``metrics``, its ``training/metrics.jsonl`` records); with
+    ``monitor``, the text of its ``_monitor.csv``, ``parse_monitor``."""
+    out = _parse_log(text, metrics)
+    if monitor is not None:
+        out["monitor"] = parse_monitor(monitor, metrics)
+    return out
+
+
+def _parse_log(text: str, metrics: list[dict] | None) -> dict:
     if "neg entropy" not in text:
         out = parse_codec_log(text)
         parts = [float(m) for _, m in STOPPED.findall(text)]
@@ -147,18 +222,28 @@ def parse_post_log(text: str) -> dict:
 
 
 def parse_file(path: str) -> dict:
-    """``parse_post_log`` for a file named ``*post_cglow*``, else
-    ``parse_log`` with the ``<stem>_metrics.jsonl`` beside it, if any."""
+    """``parse_post_log`` for a file named ``*post_cglow*``; the last JSON
+    line of a ``*glow_check*`` log; else ``parse_log`` with the
+    ``<stem>_metrics.jsonl`` and ``<stem>_monitor.csv`` beside it, if
+    any."""
     with open(path) as f:
         text = f.read()
-    if "post_cglow" in os.path.basename(path):
+    name = os.path.basename(path)
+    if "post_cglow" in name:
         return parse_post_log(text)
-    jsonl = os.path.splitext(path)[0] + "_metrics.jsonl"
+    if "glow_check" in name:
+        lines = [ln for ln in text.splitlines() if ln.startswith("{")]
+        return json.loads(lines[-1])["glow_check"] if lines else {}
+    stem = os.path.splitext(path)[0]
     metrics = None
-    if os.path.isfile(jsonl):
-        with open(jsonl) as f:
+    if os.path.isfile(stem + "_metrics.jsonl"):
+        with open(stem + "_metrics.jsonl") as f:
             metrics = [json.loads(line) for line in f if line.strip()]
-    return parse_log(text, metrics)
+    monitor = None
+    if os.path.isfile(stem + "_monitor.csv"):
+        with open(stem + "_monitor.csv") as f:
+            monitor = f.read()
+    return parse_log(text, metrics, monitor)
 
 
 def _epochs(ckpt_dir: str) -> list[int]:
@@ -179,7 +264,8 @@ class Run:
         if kind not in KINDS or not seed.isdigit():
             raise SystemExit(f"a run is <fvcg|cglow>:<seed>, not {entry!r}")
         prefix, module, recipe = KINDS[kind]
-        self.kind, self.name = kind, f"{prefix}_seed{seed}"
+        tag = f"_{args.tag}" if args.tag else ""
+        self.kind, self.name = kind, f"{prefix}_seed{seed}{tag}"
         self.out, self.device = args.out, args.device
         self.log_path = os.path.join(args.out, f"{self.name}.log")
         self.argv = [*recipe, "--seed", seed, "--device", args.device,
@@ -206,7 +292,14 @@ class Run:
                                                           "_post_cglow"), [
                 "pde_surrogate_torch.cli.post_cglow", "--run-dir",
                 self.run_dir, *POST, *args.post_extra]))
+            self.follow.append(("glow_check", self.name.replace(
+                "_cglow", "_glow_check"), [
+                "pde_surrogate_torch.tools.glow_check", "--checkpoint",
+                os.path.join(self.ckpt_dir,
+                             f"model_epoch{self.epochs}.pt")]))
         self.train_cmd = [module, *self.argv]
+        self.monitor_path = os.path.join(args.out, f"{self.name}_monitor.csv")
+        self.epoch = 0                # the epoch training is in
         self.proc = self.log = None
         self.ok = True
         self.result: dict = {}
@@ -230,7 +323,7 @@ class Run:
         self.proc = subprocess.Popen(
             [sys.executable, "-m", *self.train_cmd, *resume],
             stdout=self.log, stderr=subprocess.STDOUT)
-        self.phase = "train"
+        self.phase, self.epoch = "train", self.first
         self.t_train = None           # when the log says training started
         self.seen = set(done)
         self.last_ckpt = (done[-1] if done else 0, None)
@@ -244,6 +337,7 @@ class Run:
             return False
         self._copy_metrics()
         self.phase, name, cmd = self.follow.pop(0)
+        self.epoch = self.epochs
         self.log = open(os.path.join(self.out, f"{name}.log"), "w")
         self.proc = subprocess.Popen(
             [sys.executable, "-m", *cmd, "--device", self.device],
@@ -281,6 +375,8 @@ class Run:
         text = self._text()
         if self.t_train is None and "Start training" in text:
             self.t_train = now
+        if ends := re.findall(r"Epoch (\d+): training loss", text):
+            self.epoch = int(ends[-1]) + 1
         # the newest checkpoint (the cGlow's once its eval is logged: it
         # checkpoints before its eval)
         new = [e for e in _epochs(self.ckpt_dir) if e not in self.seen and (
@@ -314,6 +410,15 @@ class Run:
                 return False
         return True
 
+    def sample(self, row: str) -> None:
+        """Append one sample of the card (``sample_card``) with this run's
+        phase and epoch to its monitor CSV."""
+        new = not os.path.isfile(self.monitor_path)
+        with open(self.monitor_path, "a") as f:
+            if new:
+                f.write(MONITOR_HEADER + "\n")
+            f.write(f"{self.phase}, {self.epoch}, {row}\n")
+
     def stop(self, now: float) -> None:
         """Stop the running process; a stopped training resumes from its
         last checkpoint in the next call, a stopped follow-up reruns."""
@@ -339,6 +444,20 @@ class Run:
             self.result["stopped_after"] = e
             self._copy_metrics()
         self.log.close()
+
+
+def sample_card(fields: str = SMI_FIELDS) -> str:
+    """One sample of the card (``nvidia-smi``) and of the host's load
+    (``/proc/loadavg``) as a CSV row; raises if ``nvidia-smi`` fails."""
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={fields}",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if out.returncode != 0 or not out.stdout.strip():
+        raise RuntimeError(f"nvidia-smi failed ({out.returncode}): "
+                           f"{out.stdout.strip()} {out.stderr.strip()}")
+    with open("/proc/loadavg") as f:
+        load = f.read().split()
+    return ", ".join([out.stdout.strip().splitlines()[0], *load])
 
 
 def _prepare_data(runs: list[Run]) -> None:
@@ -373,6 +492,8 @@ def main(argv=None) -> int:
                    help="stop each run right after its first checkpoint "
                         "at or after this epoch")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--tag", default="",
+                   help="end every log name in _<tag>")
     p.add_argument("--parse", nargs="*", default=[],
                    help="only parse these logs and print the JSON line")
     for kind in ("codec", "cglow", "post"):
@@ -399,19 +520,45 @@ def main(argv=None) -> int:
     _prepare_data(runs)
     print(f"[canon_runs] data ready in {time.monotonic() - clock0:.1f} s",
           flush=True)
+    fields, monitor_error = None, None
+    if args.device.startswith("cuda"):
+        # fails before any run starts; newer drivers name the throttle
+        # reasons clocks_event_reasons
+        try:
+            sample_card(fields := SMI_FIELDS)
+        except RuntimeError:
+            sample_card(fields := SMI_FIELDS.replace(
+                "clocks_throttle_reasons", "clocks_event_reasons"))
     running = [r for r in runs if r.start()]
+    next_sample = time.monotonic()
     while running:
         time.sleep(POLL_S)
         now = time.monotonic()
+        if fields and now >= next_sample:
+            try:
+                row = sample_card(fields)
+            except (RuntimeError, OSError, subprocess.TimeoutExpired) as e:
+                # the runs go on; the call ends in an error
+                monitor_error, fields = str(e), None
+                print(f"[canon_runs] monitor: {e}", file=sys.stderr,
+                      flush=True)
+            else:
+                for r in running:
+                    r.sample(row)
+            next_sample = now + MONITOR_S
         running = [r for r in running if r.poll(now, deadline)]
     for r in runs:
         r.result.update(parse_file(r.log_path))
-        post = r.log_path.replace("_cglow", "_post_cglow")
-        if r.kind == "cglow" and os.path.isfile(post):
-            r.result["post"] = parse_file(post)
+        for key, name in (("post", "_post_cglow"),
+                          ("glow_check", "_glow_check")):
+            path = r.log_path.replace("_cglow", name)
+            if r.kind == "cglow" and os.path.isfile(path):
+                r.result[key] = parse_file(path)
     shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps({"canon_runs": {r.name: r.result for r in runs}}))
-    return 0 if all(r.ok for r in runs) else 1
+    if monitor_error:
+        print(f"[canon_runs] the monitor failed: {monitor_error}")
+    return 0 if all(r.ok for r in runs) and not monitor_error else 1
 
 
 if __name__ == "__main__":
