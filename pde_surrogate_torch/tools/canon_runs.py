@@ -49,8 +49,9 @@ run keeps only its latest checkpoint, a finished run of either kind none,
 so ``--work`` stays small enough to carry between calls.
 
 One JSON line at the end holds ``parse_log`` of every run,
-``parse_post_log`` of every UQ suite and glow_check's numbers; ``--parse`` only reads logs (the JAX
-package's too: a ``post_cglow`` log by its name) and prints that line.
+``parse_post_log`` of every UQ suite and glow_check's numbers; ``--parse``
+only reads logs (the JAX package's too: a ``post_cglow`` or
+``glow_check`` log by its name) and prints that line.
 
 Run:  python3 -m pde_surrogate_torch.tools.canon_runs --runs fvcg:1 fvcg:2 \
           cglow:1 --breakdown fvcg:1 fvcg:2 --out canon --work canon/work \
@@ -135,14 +136,14 @@ def parse_monitor(text: str, metrics: list[dict] | None = None) -> dict:
                                      and int(r[8], 16)}),
                  "samples": len(rows)}
            for key, rows in groups.items()}
-    for m in metrics or []:
-        key = _epoch_range(m["epoch"])
-        if key in out:
-            out[key].setdefault("_rates", []).append(m["samples_per_sec"])
-    for v in out.values():
-        rates = v.pop("_rates", None)
-        if metrics is not None:
-            v["samples_per_s"] = float(np.median(rates)) if rates else None
+    if metrics is not None:
+        rates: dict[str, list[float]] = {}
+        for m in metrics:
+            rates.setdefault(_epoch_range(m["epoch"]), []).append(
+                m["samples_per_sec"])
+        for key, v in out.items():
+            v["samples_per_s"] = (float(np.median(rates[key])) if key in rates
+                                  else None)
     return out
 
 
@@ -446,10 +447,10 @@ class Run:
         self.log.close()
 
 
-def sample_card(fields: str = SMI_FIELDS) -> str:
+def sample_card() -> str:
     """One sample of the card (``nvidia-smi``) and of the host's load
     (``/proc/loadavg``) as a CSV row; raises if ``nvidia-smi`` fails."""
-    out = subprocess.run(["nvidia-smi", f"--query-gpu={fields}",
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={SMI_FIELDS}",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     if out.returncode != 0 or not out.stdout.strip():
@@ -520,26 +521,20 @@ def main(argv=None) -> int:
     _prepare_data(runs)
     print(f"[canon_runs] data ready in {time.monotonic() - clock0:.1f} s",
           flush=True)
-    fields, monitor_error = None, None
-    if args.device.startswith("cuda"):
-        # fails before any run starts; newer drivers name the throttle
-        # reasons clocks_event_reasons
-        try:
-            sample_card(fields := SMI_FIELDS)
-        except RuntimeError:
-            sample_card(fields := SMI_FIELDS.replace(
-                "clocks_throttle_reasons", "clocks_event_reasons"))
+    monitor, monitor_error = args.device.startswith("cuda"), None
+    if monitor:
+        sample_card()                 # fails before any run starts
     running = [r for r in runs if r.start()]
     next_sample = time.monotonic()
     while running:
         time.sleep(POLL_S)
         now = time.monotonic()
-        if fields and now >= next_sample:
+        if monitor and now >= next_sample:
             try:
-                row = sample_card(fields)
+                row = sample_card()
             except (RuntimeError, OSError, subprocess.TimeoutExpired) as e:
                 # the runs go on; the call ends in an error
-                monitor_error, fields = str(e), None
+                monitor_error, monitor = str(e), False
                 print(f"[canon_runs] monitor: {e}", file=sys.stderr,
                       flush=True)
             else:

@@ -6,6 +6,7 @@ split of the val SSE (``tools/r2_breakdown.py``), the reading of R1's logs
 reading of the JAX package's bar logs."""
 
 import json
+import os
 import pathlib
 
 import numpy as np
@@ -240,6 +241,11 @@ def test_canon_runs_side_by_side(tmp_path, capsys, monkeypatch):
     assert '"physics": "fvcg"' in next(
         (tmp_path / "work").rglob("args.txt")).read_text()
     assert (out / "r3_port_cglow_seed3_metrics.jsonl").is_file()
+    assert glow["glow_check_rc"] == 0
+    check = glow["glow_check"]
+    assert check["checkpoint"] == "model_epoch2.pt"
+    assert 0 < check["largest_head"] == max(check["heads"].values())
+    assert [r[1] for r in check["card_vs_cpu"]] == [0.0] * 7
     assert not list((tmp_path / "work").rglob("*.pt"))
 
 
@@ -308,9 +314,121 @@ def test_canon_runs_stop_and_resume(tmp_path, capsys, monkeypatch):
      {"r2": [0.98485523, 0.98416805, 0.9190837],
       "rel_l2": [0.01952975, 0.06485741, 0.26111066],
       "num_nan_inf": 0, "abnormal_rate": 0.0}),
+    ("r3_port_cglow_seed1_full.log",
+     {"epochs": 200, "r2": [0.9921361, 0.9910968, 0.93341607],
+      "u_r2_last20": [0.9849652, 0.9921361], "skipped_steps": 0,
+      "rises_1p5": 13, "minutes": 85.17, "parts": 2}),
+    ("r3_port_post_cglow_seed1_full.log",
+     {"r2": [0.99213004, 0.99110013, 0.93342984], "num_nan_inf": 0,
+      "abnormal_rate": 0.0}),
+    ("r3_port_glow_check_seed1_full.log",
+     {"checkpoint": "model_epoch200.pt", "largest_head": 0.5845924019813538}),
 ])
 def test_canon_runs_parses_the_bar_logs(log, want):
     """``tools/canon_runs.parse_file`` reads the JAX package's R2 and R3
-    bars (TPU runs) as the records quote them."""
+    bars (TPU runs) and the port's R3 from epoch 1 to 200 with its UQ
+    suite and F2's check (card runs) as the records quote them."""
     got = canon_runs.parse_file(str(LOGS / log))
     assert {k: got[k] for k in want} == want
+
+
+MONITOR_CSV = canon_runs.MONITOR_HEADER + """
+train, 1, 2026/10/17 23:40:01.123, 1980 MHz, 2619 MHz, 250.12 W, 45 %, 40, \
+0x0000000000000000, 1.10, 1.20, 1.30, 2/300, 1234
+train, 3, 2026/10/17 23:40:31.123, 1755 MHz, 2619 MHz, 310.00 W, 55 %, 45, \
+0x0000000000000004, 3.10, 1.20, 1.30, 2/300, 1235
+train, 26, 2026/10/17 23:41:01.123, 1980 MHz, 2619 MHz, [N/A], 35 %, 41, \
+0x0000000000000000, 2.00, 1.20, 1.30, 2/300, 1236
+post, 200, 2026/10/17 23:41:31.123, 1980 MHz, 2619 MHz, 400.00 W, 99 %, 50, \
+0x0000000000000001, 2.00, 1.20, 1.30, 2/300, 1237
+"""
+
+
+def test_canon_runs_parses_the_monitor(tmp_path):
+    """``parse_monitor`` on a canned monitor CSV (the runner's header, then
+    its ``phase, epoch, nvidia-smi fields, /proc/loadavg`` rows): per range
+    of 25 epochs and per follow-up phase the median SM clock, utilisation,
+    power and load, the throttle masks other than 0, the sample count and
+    the range's median samples/s; a field nvidia-smi gives as ``[N/A]`` is
+    left out.  ``parse_file`` reads the CSV beside a log (the epoch-75 cGlow
+    log, renamed) into ``parse_log``'s ``monitor``."""
+    metrics = [{"epoch": 1, "samples_per_sec": 300.0},
+               {"epoch": 2, "samples_per_sec": 200.0},
+               {"epoch": 30, "samples_per_sec": 100.0}]
+    got = canon_runs.parse_monitor(MONITOR_CSV, metrics)
+    assert got == {
+        "1-25": {"sm_mhz": 1867.5, "util_pct": 50.0, "power_w": 280.06,
+                 "load1": 2.1, "throttle": ["0x0000000000000004"],
+                 "samples": 2, "samples_per_s": 250.0},
+        "26-50": {"sm_mhz": 1980.0, "util_pct": 35.0, "power_w": None,
+                  "load1": 2.0, "throttle": [], "samples": 1,
+                  "samples_per_s": 100.0},
+        "post": {"sm_mhz": 1980.0, "util_pct": 99.0, "power_w": 400.0,
+                 "load1": 2.0, "throttle": ["0x0000000000000001"],
+                 "samples": 1, "samples_per_s": None}}
+    assert "samples_per_s" not in canon_runs.parse_monitor(MONITOR_CSV)["post"]
+    log = tmp_path / "r3_port_cglow_seed9.log"
+    log.write_text((LOGS / "r3_port_cglow_seed1.log").read_text())
+    (tmp_path / "r3_port_cglow_seed9_monitor.csv").write_text(MONITOR_CSV)
+    parsed = canon_runs.parse_file(str(log))
+    assert parsed["epochs"] == 75
+    assert parsed["monitor"]["1-25"]["sm_mhz"] == 1867.5
+    assert "monitor" not in canon_runs.parse_file(
+        str(LOGS / "r3_port_cglow_seed1.log"))
+
+
+def test_glow_outputs_take_a_state_dict():
+    """``tools/glow_check.glow_outputs`` at 16² (enc [2,2], flow [2,2]):
+    given the seeded model's own state dict, every output equals the
+    seeded outputs exactly; a state dict with the heads scaled moves them;
+    ``effective_heads`` names every ``Conv2dZeros`` and reads its largest
+    |w| * exp(3 * scale)."""
+    from pde_surrogate_torch.tools import glow_check as gc
+    kw = dict(imsize=16, enc_blocks=[2, 2], flow_blocks=[2, 2],
+              head_scale=1e-3)
+    model = gc.glow_model(16, [2, 2], [2, 2], 1e-3, "cpu")
+    seeded = gc.glow_outputs("cpu", torch.float32, **kw)
+    given = gc.glow_outputs("cpu", torch.float32, **kw,
+                            state_dict=model.state_dict())
+    assert seeded.keys() == given.keys()
+    for name in seeded:
+        assert torch.equal(seeded[name], given[name]), name
+    heads = gc.effective_heads(model)
+    assert len(heads) == 5 and "encoder.top_latent" in heads
+    state = {k: torch.full_like(v, 0.5) if k.endswith("conv_zero.scale")
+             else v for k, v in model.state_dict().items()}
+    moved = gc.glow_outputs("cpu", torch.float32, **kw, state_dict=state)
+    assert not torch.equal(moved["generate y"], seeded["generate y"])
+    model.load_state_dict(state)
+    scaled = gc.effective_heads(model)
+    w = model.revblock1.revlayer1.coupling.coupling_nn.conv_zero.conv.weight
+    name = "revblock1.revlayer1.coupling.coupling_nn.conv_zero"
+    assert scaled[name] == pytest.approx(
+        float(w.detach().abs().max()) * np.exp(1.5), rel=1e-6)
+
+
+@pytest.mark.parametrize("smi", ["answers", "fails"])
+def test_canon_runs_samples_the_card(tmp_path, monkeypatch, smi):
+    """``sample_card`` with a stand-in ``nvidia-smi`` first on the PATH:
+    it asks for ``SMI_FIELDS`` and returns nvidia-smi's line with the
+    host's ``/proc/loadavg`` appended, which ``parse_monitor`` reads once
+    the runner has put the phase and epoch in front; an ``nvidia-smi`` that
+    fails raises."""
+    line = ("2026/10/17 23:40:01.123, 1980 MHz, 2619 MHz, 250.12 W, 45 %, "
+            "40, 0x0000000000000000")
+    body = (f'[ "$1" = "--query-gpu={canon_runs.SMI_FIELDS}" ] || exit 9\n'
+            f'echo "{line}"' if smi == "answers" else "exit 6")
+    fake = tmp_path / "nvidia-smi"
+    fake.write_text(f"#!/bin/sh\n{body}\n")
+    fake.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{tmp_path}:{os.environ['PATH']}")
+    if smi == "fails":
+        with pytest.raises(RuntimeError, match="nvidia-smi failed"):
+            canon_runs.sample_card()
+        return
+    row = canon_runs.sample_card()
+    assert row.startswith(line + ", ")
+    assert len(row.split(", ")) == 12
+    csv_text = f"{canon_runs.MONITOR_HEADER}\ntrain, 3, {row}\n"
+    got = canon_runs.parse_monitor(csv_text)["1-25"]
+    assert got["sm_mhz"] == 1980.0 and got["util_pct"] == 45.0
