@@ -9,14 +9,23 @@ boundary weight 10), only ``--seed`` set.  Each ``--runs`` entry
 ``tools/f1_tpu_precision.py --cli codec``) trains in its own process and
 exp dir, all at once on one card, on one data dir whose splits are
 generated (the val labels by K1) before they start.  Each run's log goes
-to ``<out>/r1_port_<precision>_seed<seed>.log``.  For every entry also in
+to ``<out>/<name>_<precision>_seed<seed>.log`` (``--name``, by default
+``r1_port``).  For every entry also in
 ``--breakdown``, ``tools/r2_breakdown.py`` then splits the val SSE of the
-last epoch's checkpoint (``..._breakdown.log`` beside the log).  One JSON
-line at the end holds ``parse_log`` of every run; ``--parse`` only reads
-logs (the JAX package's too) and prints that line.
+last epoch's checkpoint (``..._breakdown.log`` beside the log).  For
+every entry in ``--split``, ``tools/f3_bn_split.py`` then splits the val
+R² of the checkpoints of ``--split-epochs`` into the BatchNorm running
+statistics and the weights (``..._split.log``; give the runs
+``--extra --ckpt-freq 1``), and with ``--export-epoch N`` writes epoch N's
+model state beside it (``..._epoch<N>.npz``).  One JSON line at the end
+holds ``parse_log`` of every run; ``--parse`` only reads logs (the JAX
+package's too) and prints that line.
 
 Run:  python3 -m pde_surrogate_torch.tools.r1_seeds --runs tpuprec:1 \
           tpuprec:2 --breakdown tpuprec:1 --out logs
+      python3 -m pde_surrogate_torch.tools.r1_seeds --runs f32:4 f32:1 \
+          --split f32:4 f32:1 --export-epoch 280 --name f3_port --out logs \
+          --extra --ckpt-freq 1
       python3 -m pde_surrogate_torch.tools.r1_seeds --parse \
           logs/r1_port_f32_seed1.log logs/canon_kle512_300ep_r4.log
 """
@@ -93,6 +102,16 @@ def _key(entry: str) -> tuple[str, int]:
     return prec, int(seed)
 
 
+def _follow_up(tool: str, run_dir: str, args, log: str, flags) -> int:
+    """Run ``tools/<tool>.py`` on a finished run, its output into ``log``;
+    returns its exit code."""
+    with open(log, "w") as out:
+        return subprocess.run(
+            [sys.executable, "-m", f"pde_surrogate_torch.tools.{tool}",
+             "--run-dir", run_dir, "--device", args.device, *flags],
+            stdout=out, stderr=subprocess.STDOUT).returncode
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--runs", nargs="+", default=[],
@@ -100,6 +119,15 @@ def main(argv=None) -> int:
     p.add_argument("--breakdown", nargs="*", default=[],
                    help="entries of --runs whose last checkpoint "
                         "tools/r2_breakdown.py splits")
+    p.add_argument("--split", nargs="*", default=[],
+                   help="entries of --runs whose checkpoints of "
+                        "--split-epochs tools/f3_bn_split.py splits")
+    p.add_argument("--split-epochs", default="281-300")
+    p.add_argument("--export-epoch", type=int, default=None,
+                   help="also write this epoch's model state of every "
+                        "--split run as .npz")
+    p.add_argument("--name", default="r1_port",
+                   help="prefix of the logs' names")
     p.add_argument("--out", default="logs")
     p.add_argument("--device", default="cuda")
     p.add_argument("--parse", nargs="*", default=[],
@@ -117,6 +145,7 @@ def main(argv=None) -> int:
 
     runs = [_key(e) for e in args.runs]
     breakdown = {_key(e) for e in args.breakdown}
+    split = {_key(e) for e in args.split}
     os.makedirs(args.out, exist_ok=True)
     work = tempfile.mkdtemp(prefix="r1_")
     data = os.path.join(work, "data")
@@ -126,7 +155,7 @@ def main(argv=None) -> int:
         ["--device", args.device, "--data-dir", data, *args.extra]))
     procs = {}
     for prec, seed in runs:
-        name = f"r1_port_{prec}_seed{seed}"
+        name = f"{args.name}_{prec}_seed{seed}"
         log = open(os.path.join(args.out, f"{name}.log"), "w")
         cmd = [sys.executable, "-m", MODULES[prec], *PREFIX[prec],
                "--seed", str(seed), "--device", args.device, "--no-plot",
@@ -141,19 +170,24 @@ def main(argv=None) -> int:
         ok &= rc == 0
         with open(log.name) as f:
             result[name] = {"rc": rc, **parse_log(f.read())}
-        if rc == 0 and (prec, seed) in breakdown:
-            (run_dir,) = [r for r, _, files in
-                          os.walk(os.path.join(work, name))
-                          if "args.txt" in files]
-            with open(os.path.join(args.out, f"{name}_breakdown.log"),
-                      "w") as out:
-                rc = subprocess.run(
-                    [sys.executable, "-m",
-                     "pde_surrogate_torch.tools.r2_breakdown",
-                     "--run-dir", run_dir, "--device", args.device,
-                     *(["--tpu-precision"] if prec == "tpuprec" else [])],
-                    stdout=out, stderr=subprocess.STDOUT).returncode
+        if rc != 0 or (prec, seed) not in breakdown | split:
+            continue
+        (run_dir,) = [r for r, _, files in os.walk(os.path.join(work, name))
+                      if "args.txt" in files]
+        if (prec, seed) in breakdown:
+            rc = _follow_up("r2_breakdown", run_dir, args, os.path.join(
+                args.out, f"{name}_breakdown.log"),
+                ["--tpu-precision"] if prec == "tpuprec" else [])
             result[name]["breakdown_rc"] = rc
+            ok &= rc == 0
+        if (prec, seed) in split:
+            export = ([] if args.export_epoch is None else [
+                "--export", f"{args.export_epoch}:" + os.path.join(
+                    args.out, f"{name}_epoch{args.export_epoch}.npz")])
+            rc = _follow_up("f3_bn_split", run_dir, args, os.path.join(
+                args.out, f"{name}_split.log"),
+                ["--epochs", args.split_epochs, *export])
+            result[name]["split_rc"] = rc
             ok &= rc == 0
     shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"r1_seeds": result}))
