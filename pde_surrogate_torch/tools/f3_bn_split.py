@@ -1,7 +1,8 @@
 """Split a codec run's late-epoch val R² flap into the BatchNorm running
 statistics and the weights (ROADMAP F3).
 
-For each checkpoint of ``--epochs`` of a run made by
+For each checkpoint of ``--epochs`` (by default the run's last 20
+epochs, from epoch 2 at the earliest) of a run made by
 ``cli.train_codec_mixed_residual`` (``--ckpt-freq 1``), this prints a row:
 
 * (a) the val R² under the checkpoint's own running statistics, from the
@@ -24,8 +25,10 @@ For each checkpoint of ``--epochs`` of a run made by
   three lowest-permeability fields of the canonical split) under (a) and
   under (b);
 
-then one JSON line with every row and ``R_run`` / ``R_pre``, the range
-(max − min) of u's R² over the rows under (a) and under (b).
+then a summary of their ranges and one JSON line with every row and
+``R_run`` / ``R_pre``, the range (max − min) of u's R² over the rows under
+(a) and under (b); ``--parse`` prints the summary of split logs' JSON
+lines.
 ``--export EPOCH:PATH`` also writes that epoch's model state (parameters
 and BatchNorm buffers, float32) to an ``.npz`` whose ``meta`` entry (a
 JSON string) names the run, the epoch and the card (``nvidia-smi``'s name
@@ -33,6 +36,8 @@ and power limit).
 
 Run:  python3 -m pde_surrogate_torch.tools.f3_bn_split --run-dir <run dir> \
           --epochs 281-300 [--export 280:f3_seed4_epoch280.npz] [--device cuda]
+      python3 -m pde_surrogate_torch.tools.f3_bn_split --parse \
+          logs/f3_port_f32_seed4_split.log
 """
 
 from __future__ import annotations
@@ -63,6 +68,7 @@ __all__ = ["precise_statistics", "with_statistics", "movement",
 
 FIELDS = (138, 38, 28)
 R2_TOL = 1e-5
+LAST = 20       # the epochs whose u R^2 range r1_seeds.parse_log reports
 
 
 def _state_equal(a: dict, b: dict) -> bool:
@@ -292,6 +298,31 @@ def split_run(run_dir: str, epochs, device="cuda", log=print) -> dict:
             "R_pre": max(u_b) - min(u_b), "card": card_name_power()}
 
 
+def summarize(res: dict) -> dict:
+    """The ranges over the rows of ``split_run``'s result: u's R² under
+    (a) and (b), the moves of (c) (rows with a previous checkpoint) and
+    the three fields' shares of (d), each as [min, max]."""
+    rows = res["rows"]
+    moved = [r["movement"] for r in rows if r["movement"]]
+
+    def span(vals):
+        return [min(vals), max(vals)] if vals else None
+
+    return {"seed": res["seed"], "epochs": [rows[0]["epoch"],
+                                            rows[-1]["epoch"]],
+            "R_run": res["R_run"], "R_pre": res["R_pre"],
+            "u_r2_run": span([r["r2_run"][0] for r in rows]),
+            "u_r2_precise": span([r["r2_precise"][0] for r in rows]),
+            "last": {"r2_run": rows[-1]["r2_run"],
+                     "r2_precise": rows[-1]["r2_precise"]},
+            "params_move": span([m["params"]["rel"] for m in moved]),
+            "stats_move": span([m["stats"]["rel"] for m in moved]),
+            "stats_largest": sorted({m["stats"]["largest"] for m in moved}),
+            "share_run": span([r["fields_share_run"] for r in rows]),
+            "share_precise": span([r["fields_share_precise"]
+                                   for r in rows])}
+
+
 def _epoch_range(text: str) -> list[int]:
     lo, _, hi = text.partition("-")
     return list(range(int(lo), int(hi or lo) + 1))
@@ -299,21 +330,39 @@ def _epoch_range(text: str) -> list[int]:
 
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--run-dir", required=True)
-    p.add_argument("--epochs", type=_epoch_range, default="281-300",
-                   help="checkpoint epochs, 'A-B' or 'A'")
+    p.add_argument("--run-dir", default=None)
+    p.add_argument("--parse", nargs="*", default=[],
+                   help="only summarize these split logs' JSON lines")
+    p.add_argument("--epochs", type=_epoch_range, default=None,
+                   help="checkpoint epochs, 'A-B' or 'A' (default: the "
+                        f"run's last {LAST}, from epoch 2 at the earliest)")
     p.add_argument("--export", default=None,
                    help="EPOCH:PATH: write that epoch's model state as .npz")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
+    if args.parse:
+        out = {}
+        for path in args.parse:
+            with open(path) as f:
+                line = [ln for ln in f if ln.startswith('{"f3_bn_split"')][-1]
+            out[os.path.basename(path)] = summarize(
+                json.loads(line)["f3_bn_split"])
+        print(json.dumps({"f3_bn_split_summary": out}))
+        return out
+    if args.run_dir is None:
+        p.error("--run-dir is required unless --parse is given")
     if args.export:
         epoch, _, path = args.export.partition(":")
         meta = export_state(args.run_dir, int(epoch), path)
         print(f"[f3_bn_split] wrote {path}: {json.dumps(meta)}")
+    if args.epochs is None:
+        last = load_args(args.run_dir).epochs
+        args.epochs = list(range(max(last - LAST + 1, 2), last + 1))
     res = split_run(args.run_dir, args.epochs, args.device)
     print(f"[f3_bn_split] u R2 range over epochs {args.epochs[0]}-"
           f"{args.epochs[-1]}: R_run {res['R_run']:.6f} (running "
           f"statistics), R_pre {res['R_pre']:.6f} (precise statistics)")
+    print(f"[f3_bn_split] summary: {json.dumps(summarize(res))}")
     print(json.dumps({"f3_bn_split": res}))
     return res
 

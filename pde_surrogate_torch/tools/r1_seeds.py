@@ -14,7 +14,7 @@ to ``<out>/<name>_<precision>_seed<seed>.log`` (``--name``, by default
 ``--breakdown``, ``tools/r2_breakdown.py`` then splits the val SSE of the
 last epoch's checkpoint (``..._breakdown.log`` beside the log).  For
 every entry in ``--split``, ``tools/f3_bn_split.py`` then splits the val
-R² of the checkpoints of ``--split-epochs`` into the BatchNorm running
+R² of the checkpoints of the last 20 epochs into the BatchNorm running
 statistics and the weights (``..._split.log``; give the runs
 ``--extra --ckpt-freq 1``), and with ``--export-epoch N`` writes epoch N's
 model state beside it (``..._epoch<N>.npz``).  One JSON line at the end
@@ -120,9 +120,8 @@ def main(argv=None) -> int:
                    help="entries of --runs whose last checkpoint "
                         "tools/r2_breakdown.py splits")
     p.add_argument("--split", nargs="*", default=[],
-                   help="entries of --runs whose checkpoints of "
-                        "--split-epochs tools/f3_bn_split.py splits")
-    p.add_argument("--split-epochs", default="281-300")
+                   help="entries of --runs whose last 20 epochs' "
+                        "checkpoints tools/f3_bn_split.py splits")
     p.add_argument("--export-epoch", type=int, default=None,
                    help="also write this epoch's model state of every "
                         "--split run as .npz")
@@ -186,7 +185,7 @@ def main(argv=None) -> int:
                     args.out, f"{name}_epoch{args.export_epoch}.npz")])
             rc = _follow_up("f3_bn_split", run_dir, args, os.path.join(
                 args.out, f"{name}_split.log"),
-                ["--epochs", args.split_epochs, *export])
+                export)
             result[name]["split_rc"] = rc
             ok &= rc == 0
     shutil.rmtree(work, ignore_errors=True)
