@@ -32,10 +32,21 @@ lines.
 ``--export EPOCH:PATH`` also writes that epoch's model state (parameters
 and BatchNorm buffers, float32) to an ``.npz`` whose ``meta`` entry (a
 JSON string) names the run, the epoch and the card (``nvidia-smi``'s name
-and power limit).
+and power limit), and beside it ``<stem>_adam.npz``, the rest of the
+training state: Adam's ``exp_avg``, ``exp_avg_sq`` and ``step`` of every
+parameter, keyed ``<parameter's state-dict name>.<entry>``, the
+``CodecState`` step and the epoch, and a ``meta`` entry with what the
+schedule and the batch order need (the run's ``seed``, ``batch_size``,
+``lr``, ``lr_div``, ``lr_pct``, ``weight_decay``, ``epochs``,
+``ntrain``).  The exported model, loaded back, must reproduce the CLI's
+logged R² of that epoch within ``R2_TOL`` relative, else the tool raises.
+``load_export`` reads both files (an export without the Adam file too);
+``restore_export`` puts them into a ``CodecState``, which then steps as
+the uninterrupted run does.
 
 Run:  python3 -m pde_surrogate_torch.tools.f3_bn_split --run-dir <run dir> \
-          --epochs 281-300 [--export 280:f3_seed4_epoch280.npz] [--device cuda]
+          --epochs 281-300 [--export 280:f3_tail_seed4_epoch280.npz] \
+          [--device cuda]
       python3 -m pde_surrogate_torch.tools.f3_bn_split --parse \
           logs/f3_port_f32_seed4_split.log
 """
@@ -64,11 +75,16 @@ from ..utils.metrics import r2_score
 from .r2_breakdown import _cli_r2
 
 __all__ = ["precise_statistics", "with_statistics", "movement",
-           "check_logged", "split_run", "export_state", "main"]
+           "check_logged", "split_run", "export_state", "adam_path",
+           "load_export", "restore_export", "check_export", "main"]
 
 FIELDS = (138, 38, 28)
 R2_TOL = 1e-5
 LAST = 20       # the epochs whose u R^2 range r1_seeds.parse_log reports
+# the run's settings that the schedule and the batch order need
+RUN_KEYS = ("seed", "batch_size", "lr", "lr_div", "lr_pct", "weight_decay",
+            "epochs", "ntrain")
+ADAM = ("exp_avg", "exp_avg_sq", "step")
 
 
 def _state_equal(a: dict, b: dict) -> bool:
@@ -209,13 +225,21 @@ def card_name_power() -> str | None:
     return out.strip().splitlines()[0] if out.strip() else None
 
 
+def adam_path(path: str) -> str:
+    """The Adam file beside the model export ``path``:
+    ``<stem>_adam.npz``."""
+    return (path[:-4] if path.endswith(".npz") else path) + "_adam.npz"
+
+
 def export_state(run_dir: str, epoch: int, path: str) -> dict:
     """Write the model state of ``run_dir``'s checkpoint ``epoch`` to
     ``path`` (float32 tensors, ``num_batches_tracked`` int64) with a
-    ``meta`` JSON string; returns the meta."""
-    sd = torch.load(checkpoint_file(os.path.join(run_dir, "checkpoints"),
-                                    epoch), map_location="cpu",
-                    weights_only=True)["model"]
+    ``meta`` JSON string, and its Adam state to ``adam_path(path)``;
+    returns the model file's meta."""
+    ckpt = torch.load(checkpoint_file(os.path.join(run_dir, "checkpoints"),
+                                      epoch), map_location="cpu",
+                      weights_only=True)
+    sd = ckpt["model"]
     run_args = load_args(run_dir)
     n_params = sum(v.numel() for k, v in sd.items()
                    if not k.endswith(("running_mean", "running_var",
@@ -229,22 +253,88 @@ def export_state(run_dir: str, epoch: int, path: str) -> dict:
     arrays = {k: v.numpy() if v.dtype == torch.int64
               else v.float().numpy() for k, v in sd.items()}
     np.savez(path, meta=np.array(json.dumps(meta)), **arrays)
+
+    # the optimizer's state is keyed by the parameters' order in
+    # model.parameters(), which is named_parameters()'s
+    names = [n for n, _ in build_model(run_args, "cpu").named_parameters()]
+    (group,) = ckpt["optimizer"]["param_groups"]
+    if len(group["params"]) != len(names):
+        raise ValueError(f"{len(group['params'])} optimizer entries for "
+                         f"{len(names)} parameters")
+    adam = {}
+    for index, name in zip(group["params"], names):
+        entry = ckpt["optimizer"]["state"][index]
+        if entry["exp_avg"].shape != sd[name].shape:
+            raise ValueError(f"{name}: Adam's moments have shape "
+                             f"{tuple(entry['exp_avg'].shape)}")
+        for key in ADAM:
+            adam[f"{name}.{key}"] = entry[key].numpy()
+    adam_meta = {**{k: getattr(run_args, k) for k in RUN_KEYS},
+                 "run": meta["run"], "epoch": epoch,
+                 "state_step": int(ckpt["step"]),
+                 "betas": list(group["betas"]), "eps": group["eps"],
+                 "card": meta["card"]}
+    np.savez(adam_path(path), meta=np.array(json.dumps(adam_meta)),
+             state_step=np.array(int(ckpt["step"]), np.int64),
+             epoch=np.array(epoch, np.int64), **adam)
     return meta
 
 
-def split_run(run_dir: str, epochs, device="cuda", log=print) -> dict:
-    """The rows of ``main`` for ``epochs`` of ``run_dir``, and the ranges
-    ``R_run`` and ``R_pre`` of u's R² over them."""
-    device = select_device(device) if isinstance(device, str) else device
+def load_export(path: str) -> tuple[dict, dict | None, dict]:
+    """(model state dict of numpy arrays, Adam state or None, meta) of an
+    ``export_state`` file; the Adam state, where ``adam_path(path)``
+    exists, is ``{"params": {name: {entry: array}}, "state_step",
+    "epoch", "meta"}``."""
+    with np.load(path) as z:
+        meta = json.loads(str(z["meta"]))
+        sd = {k: z[k] for k in z.files if k != "meta"}
+    if not os.path.isfile(adam_path(path)):
+        return sd, None, meta
+    with np.load(adam_path(path)) as z:
+        params = {}
+        for key in z.files:
+            name, _, entry = key.rpartition(".")
+            if entry in ADAM:
+                params.setdefault(name, {})[entry] = z[key]
+        adam = {"params": params, "state_step": int(z["state_step"]),
+                "epoch": int(z["epoch"]),
+                "meta": json.loads(str(z["meta"]))}
+    return sd, adam, meta
+
+
+def restore_export(path: str, state) -> dict:
+    """Load the export ``path`` into ``state`` (a ``CodecState`` around a
+    model of the export's shape, in any float dtype): the model state,
+    Adam's moments and step per parameter, and ``state.step``.  Returns
+    the Adam file's meta; raises where the export has no Adam file."""
+    sd, adam, _ = load_export(path)
+    if adam is None:
+        raise FileNotFoundError(f"{adam_path(path)}: no Adam state beside "
+                                f"{path}")
+    state.model.load_state_dict({k: torch.from_numpy(np.array(v))
+                                 for k, v in sd.items()})
+    names = [n for n, _ in state.model.named_parameters()]
+    if sorted(names) != sorted(adam["params"]):
+        raise ValueError("the Adam file does not hold the model's "
+                         "parameters")
+    opt = state.optimizer.state_dict()
+    (group,) = opt["param_groups"]
+    opt["state"] = {index: {k: torch.from_numpy(np.array(v))
+                            for k, v in adam["params"][name].items()}
+                    for index, name in zip(group["params"], names)}
+    state.optimizer.load_state_dict(opt)
+    state.step = adam["state_step"]
+    return adam["meta"]
+
+
+def _run_data(run_dir: str, device) -> tuple:
+    """(run args, val DeviceDataset, y_variation, val field count, train
+    DeviceDataset) of a run as its CLI made them."""
     run_args = load_args(run_dir)
     run_args.device = str(device)
-    ckpt_dir = os.path.join(run_dir, "checkpoints")
     train_file, val_file = resolve_dataset_files(run_args)
     x_val, y_val, stats = load_data(val_file, run_args.ntest,
                                     only_input=False, return_stats=True)
-    if len(x_val) <= max(FIELDS):
-        raise ValueError(f"{val_file}: {len(x_val)} val fields, fewer than "
-                         f"field {max(FIELDS)} needs")
     val_ds = DeviceDataset(x_val, y_val, batch_size=run_args.test_batch_size,
                            seed=run_args.seed + 1, device=device,
                            shuffle=False)
@@ -252,8 +342,38 @@ def split_run(run_dir: str, epochs, device="cuda", log=print) -> dict:
     train_ds = DeviceDataset(x_train, batch_size=run_args.batch_size,
                              seed=run_args.seed, device=device)
     y_variation = torch.as_tensor(stats["y_variation"], device=device)
+    return run_args, val_ds, y_variation, (len(x_val), val_file), train_ds
+
+
+def check_export(run_dir: str, epoch: int, path: str, device="cuda") -> dict:
+    """The val R² of the model export ``path`` loaded back into the run's
+    DenseED, and its largest relative difference from the R² the CLI
+    logged for ``epoch``; raises beyond ``R2_TOL``."""
+    device = select_device(device) if isinstance(device, str) else device
+    run_args, val_ds, y_variation, _, _ = _run_data(run_dir, device)
+    sd, _, _ = load_export(path)
     model = build_model(run_args, device)
-    log(f"[f3_bn_split] {run_dir}: seed {run_args.seed}, {len(x_val)} val "
+    model.load_state_dict({k: torch.from_numpy(np.array(v))
+                           for k, v in sd.items()})
+    r2, _ = _evaluate(model, run_args, val_ds, y_variation)
+    logged = _cli_r2(os.path.join(run_dir, "checkpoints"), epoch,
+                     getattr(run_args, "log_freq", 1))
+    return {"epoch": epoch, "r2": r2.tolist(), "logged": logged,
+            "rel_diff": check_logged(r2, logged, epoch)}
+
+
+def split_run(run_dir: str, epochs, device="cuda", log=print) -> dict:
+    """The rows of ``main`` for ``epochs`` of ``run_dir``, and the ranges
+    ``R_run`` and ``R_pre`` of u's R² over them."""
+    device = select_device(device) if isinstance(device, str) else device
+    run_args, val_ds, y_variation, (n_val, val_file), train_ds = _run_data(
+        run_dir, device)
+    ckpt_dir = os.path.join(run_dir, "checkpoints")
+    if n_val <= max(FIELDS):
+        raise ValueError(f"{val_file}: {n_val} val fields, fewer than "
+                         f"field {max(FIELDS)} needs")
+    model = build_model(run_args, device)
+    log(f"[f3_bn_split] {run_dir}: seed {run_args.seed}, {n_val} val "
         f"fields of {val_file}, {len(train_ds)} train batches of "
         f"{run_args.batch_size}; u SSE share of val fields "
         f"{'/'.join(map(str, FIELDS))}")
@@ -355,6 +475,14 @@ def main(argv=None) -> dict:
         epoch, _, path = args.export.partition(":")
         meta = export_state(args.run_dir, int(epoch), path)
         print(f"[f3_bn_split] wrote {path}: {json.dumps(meta)}")
+        with np.load(adam_path(path)) as z:
+            print(f"[f3_bn_split] wrote {adam_path(path)}: "
+                  f"{(len(z.files) - 3) // len(ADAM)} parameters' Adam "
+                  f"state, {z['meta']}")
+        check = check_export(args.run_dir, int(epoch), path, args.device)
+        print(f"[f3_bn_split] the export reproduces epoch {epoch}'s logged "
+              f"R2 {check['logged']} within {check['rel_diff']:.1e} "
+              f"relative: {json.dumps(check)}")
     if args.epochs is None:
         last = load_args(args.run_dir).epochs
         args.epochs = list(range(max(last - LAST + 1, 2), last + 1))

@@ -17,7 +17,8 @@ every entry in ``--split``, ``tools/f3_bn_split.py`` then splits the val
 R² of the checkpoints of the last 20 epochs into the BatchNorm running
 statistics and the weights (``..._split.log``; give the runs
 ``--extra --ckpt-freq 1``), and with ``--export-epoch N`` writes epoch N's
-model state beside it (``..._epoch<N>.npz``).  One JSON line at the end
+model state beside it (``..._epoch<N>.npz``) and its Adam state
+(``..._epoch<N>_adam.npz``).  One JSON line at the end
 holds ``parse_log`` of every run; ``--parse`` only reads logs (the JAX
 package's too) and prints that line.
 
@@ -123,8 +124,8 @@ def main(argv=None) -> int:
                    help="entries of --runs whose last 20 epochs' "
                         "checkpoints tools/f3_bn_split.py splits")
     p.add_argument("--export-epoch", type=int, default=None,
-                   help="also write this epoch's model state of every "
-                        "--split run as .npz")
+                   help="also write this epoch's model and Adam state of "
+                        "every --split run as .npz")
     p.add_argument("--name", default="r1_port",
                    help="prefix of the logs' names")
     p.add_argument("--out", default="logs")
