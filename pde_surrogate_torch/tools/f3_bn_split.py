@@ -328,7 +328,7 @@ def restore_export(path: str, state) -> dict:
 
 
 def _run_data(run_dir: str, device) -> tuple:
-    """(run args, val DeviceDataset, y_variation, val field count, train
+    """(run args, val file, val DeviceDataset, y_variation, train
     DeviceDataset) of a run as its CLI made them."""
     run_args = load_args(run_dir)
     run_args.device = str(device)
@@ -342,7 +342,7 @@ def _run_data(run_dir: str, device) -> tuple:
     train_ds = DeviceDataset(x_train, batch_size=run_args.batch_size,
                              seed=run_args.seed, device=device)
     y_variation = torch.as_tensor(stats["y_variation"], device=device)
-    return run_args, val_ds, y_variation, (len(x_val), val_file), train_ds
+    return run_args, val_file, val_ds, y_variation, train_ds
 
 
 def check_export(run_dir: str, epoch: int, path: str, device="cuda") -> dict:
@@ -350,7 +350,7 @@ def check_export(run_dir: str, epoch: int, path: str, device="cuda") -> dict:
     DenseED, and its largest relative difference from the R² the CLI
     logged for ``epoch``; raises beyond ``R2_TOL``."""
     device = select_device(device) if isinstance(device, str) else device
-    run_args, val_ds, y_variation, _, _ = _run_data(run_dir, device)
+    run_args, _, val_ds, y_variation, _ = _run_data(run_dir, device)
     sd, _, _ = load_export(path)
     model = build_model(run_args, device)
     model.load_state_dict({k: torch.from_numpy(np.array(v))
@@ -366,14 +366,14 @@ def split_run(run_dir: str, epochs, device="cuda", log=print) -> dict:
     """The rows of ``main`` for ``epochs`` of ``run_dir``, and the ranges
     ``R_run`` and ``R_pre`` of u's R² over them."""
     device = select_device(device) if isinstance(device, str) else device
-    run_args, val_ds, y_variation, (n_val, val_file), train_ds = _run_data(
-        run_dir, device)
+    run_args, val_file, val_ds, y_variation, train_ds = _run_data(run_dir,
+                                                                  device)
     ckpt_dir = os.path.join(run_dir, "checkpoints")
-    if n_val <= max(FIELDS):
-        raise ValueError(f"{val_file}: {n_val} val fields, fewer than "
+    if val_ds.n <= max(FIELDS):
+        raise ValueError(f"{val_file}: {val_ds.n} val fields, fewer than "
                          f"field {max(FIELDS)} needs")
     model = build_model(run_args, device)
-    log(f"[f3_bn_split] {run_dir}: seed {run_args.seed}, {n_val} val "
+    log(f"[f3_bn_split] {run_dir}: seed {run_args.seed}, {val_ds.n} val "
         f"fields of {val_file}, {len(train_ds)} train batches of "
         f"{run_args.batch_size}; u SSE share of val fields "
         f"{'/'.join(map(str, FIELDS))}")
@@ -474,11 +474,8 @@ def main(argv=None) -> dict:
     if args.export:
         epoch, _, path = args.export.partition(":")
         meta = export_state(args.run_dir, int(epoch), path)
-        print(f"[f3_bn_split] wrote {path}: {json.dumps(meta)}")
-        with np.load(adam_path(path)) as z:
-            print(f"[f3_bn_split] wrote {adam_path(path)}: "
-                  f"{(len(z.files) - 3) // len(ADAM)} parameters' Adam "
-                  f"state, {z['meta']}")
+        print(f"[f3_bn_split] wrote {path} and {adam_path(path)}: "
+              f"{json.dumps(meta)}")
         check = check_export(args.run_dir, int(epoch), path, args.device)
         print(f"[f3_bn_split] the export reproduces epoch {epoch}'s logged "
               f"R2 {check['logged']} within {check['rel_diff']:.1e} "

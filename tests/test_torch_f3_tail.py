@@ -18,7 +18,11 @@ a checkpoint each; the export is epoch 2's.  Tolerances:
 * phase A: the JAX package's float64 within ``f3_tail_replay.BOUNDS``
   (those of ``tests/test_torch_codec_recipe.py``) of the port's float64
   after steps 1 and 8 and at the epoch's eval; its float32 within them
-  at step 1.
+  at step 1;
+* where the JAX package's float64 first parts from the port's
+  (``first_parts``): the port's float64 Sobel exact against numpy, the
+  JAX DenseED's float32 output within 1e-12 of the port's rounded to
+  float32, its Sobel 1e-9 to 1e-5 from float64.
 """
 
 import pathlib
@@ -257,3 +261,20 @@ def test_batch_order_is_the_cli_order(run, phase_a):
     for k, v in want.items():
         if not k.endswith("num_batches_tracked"):
             assert np.array_equal(got[k], v.double().numpy()), k
+
+
+def test_first_parts_finds_the_float32_casts(run):
+    """Under phase A's failure the first tensors that part, found by
+    ``f3_tail_replay.first_parts`` at 16² on the first batch after the
+    state: the port's float64 Sobel gradients equal numpy's float64 ones
+    exactly, while the JAX package's float64 DenseED returns its output
+    in float32 (the port's output rounded to float32, within 1e-12 of its
+    largest value) and its Sobel gradients lie 1e-9 to 1e-5 from float64;
+    the boundary losses, which read no Sobel, agree within 1e-12."""
+    res = tail.first_parts(run["state"], run["x"][:4])
+    assert res["sobel_port"] == {"grad_h": 0.0, "grad_v": 0.0}
+    assert res["output_dtype"] == "float32"
+    assert res["output_vs_rounded"] <= 1e-12 < res["output"] <= 1e-6
+    assert all(1e-9 <= e <= 1e-5 for e in res["sobel_jax"].values())
+    assert res["losses"]["loss_dirichlet"] <= 1e-12
+    assert res["losses"]["loss_neumann"] <= 1e-12

@@ -33,18 +33,22 @@ card run took.
 
 ``--phase a`` runs the first epoch after the state in all four cases, at
 most ``--at-once`` (2) processes at a time, each on its share of this
-process's cores (a queue: a case starts when another ends), and holds the JAX package's float64
-against the port's float64 after steps 1, 8, 32 and 128 within the
-bounds of ``tests/test_torch_codec_recipe.py`` (losses 3e-5 relative,
-evals 5e-6 relative, parameters 7e-5 and running statistics 4e-6 of each
-tensor's largest value), printed before any JAX case runs; the float32
-cases' distances from the port's float64 are recorded beside them and
-bounded nowhere.  ``--phase b`` trains the tail (by default epochs
-281-300) in the listed ``--tails`` (``<case>:<state>``), from the same
-queue, each into its own log: a JSON line per epoch and a closing summary with
-``R_tail``, the range of u's R² over the tail, beside the card run's own
+process's cores (a queue: a case starts when another ends), and holds
+the JAX package's float64 against the port's float64 after steps 1, 8,
+32 and 128 within the bounds of ``tests/test_torch_codec_recipe.py``
+(losses 3e-5 relative, evals 5e-6 relative, parameters 7e-5 and running
+statistics 4e-6 of each tensor's largest value), printed before any JAX
+case runs; the float32 cases' distances from the port's float64 are
+recorded beside them and bounded nowhere.  ``--phase b`` trains the tail
+(by default epochs 281-300) in the listed ``--tails``
+(``<case>:<state>``), from the same queue, each into its own log: a JSON
+line per epoch and a closing summary with ``R_tail``, the range of u's
+R² over the tail, beside the card run's own
 ``R_card`` over the same epochs from ``--card-log``.  ``--case`` runs one
-case in this process (what both phases start).
+case in this process (what both phases start).  ``--parts`` shows where
+the JAX package's float64 step first parts from the port's, on the first
+batch after the state (``first_parts``): its DenseED returns float32
+whatever its compute dtype, and its Sobel einsums output float32.
 
 The data are the codec CLI's canonical splits (kle512 at 64², 4096 train
 and 512 val fields), made on the CPU by ``tools/f3_bn_replay.py``'s
@@ -59,6 +63,9 @@ val output variation) must agree within 1e-6 relative.
         --tails jax32:logs/f3_tail_seed4_epoch280.npz \\
         port32:logs/f3_tail_seed4_epoch280.npz \\
         jax32:logs/f3_tail_seed1_epoch280.npz --out-dir logs &
+    JAX_PLATFORMS=cpu python tools/f3_tail_replay.py --parts \
+        --state logs/f3_tail_seed4_epoch280.npz \
+        --out logs/f3_tail_replay_parts_seed4.log
 """
 
 from __future__ import annotations
@@ -85,7 +92,10 @@ sys.path.insert(0, os.path.join(ROOT, "tools"))
 from f3_bn_replay import (canonical_data, card_variation,  # noqa: E402
                           jax_model, port_model)
 from pde_surrogate_torch.data.pipeline import DeviceDataset  # noqa: E402
+from pde_surrogate_torch.ops.darcy import \
+    mixed_residual_loss as t_mixed_residual_loss  # noqa: E402
 from pde_surrogate_torch.ops.filters import SobelFilter as TSobel  # noqa: E402
+from pde_surrogate_torch.ops.filters import _sobel_operators  # noqa: E402
 from pde_surrogate_torch.tools.f3_bn_split import (  # noqa: E402
     load_export, restore_export)
 from pde_surrogate_torch.train import codec_trainer as ttr  # noqa: E402
@@ -95,6 +105,8 @@ from pde_surrogate_torch.utils.from_jax import \
     codec_state_dict_from_jax  # noqa: E402
 from pde_surrogate_torch.utils.metrics import \
     r2_score as t_r2_score  # noqa: E402
+from pde_surrogate_tpu.ops.darcy import \
+    mixed_residual_loss as j_mixed_residual_loss  # noqa: E402
 from pde_surrogate_tpu.ops.filters import SobelFilter as JSobel  # noqa: E402
 from pde_surrogate_tpu.train import codec_trainer as jtr  # noqa: E402
 from pde_surrogate_tpu.train.schedules import \
@@ -388,9 +400,11 @@ def distances(got: dict, ref: dict, steps=SNAP_STEPS) -> dict:
                    "params": errs["params"][0],
                    "params_at": errs["params"][1],
                    "stats": errs["stats"][0], "stats_at": errs["stats"][1]}
-    ev = lambda r: np.array(r["epochs"][0]["r2"] + r["epochs"][0]["rel_l2"]  # noqa: E731
-                            + [r["epochs"][0]["consistency"]])
-    return {"at": rows, "evals": _rel(ev(got), ev(ref))}
+    def first_eval(res):
+        row = res["epochs"][0]
+        return np.array(row["r2"] + row["rel_l2"] + [row["consistency"]])
+
+    return {"at": rows, "evals": _rel(first_eval(got), first_eval(ref))}
 
 
 def holds(dist: dict, bounds: dict = BOUNDS, steps=SNAP_STEPS) -> bool:
@@ -424,6 +438,60 @@ def compare_phase_a(results: dict, log=print, steps=SNAP_STEPS) -> dict:
         f"jax64 against {REFERENCE} at steps {list(steps)} within "
         f"{json.dumps(BOUNDS)}")
     return out
+
+
+def first_parts(path: str, xb: np.ndarray) -> dict:
+    """Where the JAX package's float64 step parts from the port's, on one
+    batch ``xb`` from the state ``path`` before any update: the
+    train-mode outputs (relative to the largest value; the JAX DenseED
+    returns float32 whatever its compute dtype, so also against the
+    port's output rounded to float32), each package's Sobel gradients of
+    the port's output against numpy's float64 ones (the operators of
+    ``SobelFilter``, exact in float32 for the 3x3 filter), and the four
+    losses (relative)."""
+    sd, _, meta = load_export(path)
+    kw = _model_kw(meta)
+    n = kw["imsize"]
+    model = port_model(sd, torch.float64, kw).train()
+    x = torch.from_numpy(xb).double()
+    with torch.no_grad():
+        out = model(x)
+    t_sobel = TSobel(n, correct=True, filter_size=3)
+    lh, rh, lv, rv = (a.astype(np.float64)[0]
+                      for a in _sobel_operators(n, 3, True))
+    u = out.numpy()
+    want = {"grad_h": lh @ u @ rh, "grad_v": lv @ u @ rv}
+    port = {"grad_h": t_sobel.grad_h(out).numpy(),
+            "grad_v": t_sobel.grad_v(out).numpy()}
+    t_losses = t_mixed_residual_loss(x, out, t_sobel, WEIGHT_BOUND)
+    with jax.enable_x64(True):
+        jm, params, stats = jax_model(sd, False, kw, jnp.float64)
+        j_out, _ = jm.apply({"params": params, "batch_stats": stats},
+                            jnp.asarray(np.moveaxis(xb, 1, -1), jnp.float64),
+                            train=True, mutable=["batch_stats"])
+        j_sobel = JSobel(n, correct=True, filter_size=3)
+        o = jnp.asarray(np.moveaxis(u, 1, -1))
+        grads = {k: getattr(j_sobel, k)(o) for k in want}
+        dtype = str(grads["grad_h"].dtype)
+        jax_g = {k: np.moveaxis(np.asarray(v, np.float64), -1, 1)
+                 for k, v in grads.items()}
+        j_losses = j_mixed_residual_loss(
+            jnp.asarray(np.moveaxis(xb, 1, -1), jnp.float64), o, j_sobel,
+            WEIGHT_BOUND)
+        out_dtype = str(j_out.dtype)
+        j_out = np.moveaxis(np.asarray(j_out, np.float64), -1, 1)
+    scale = lambda a: float(np.max(np.abs(a)))  # noqa: E731
+    flat = lambda ls: [float(ls[0]), *map(float, ls[1])]  # noqa: E731
+    return {"output": scale(j_out - u) / scale(u), "output_dtype": out_dtype,
+            "output_vs_rounded": scale(j_out - u.astype(np.float32))
+            / scale(u),
+            "sobel_port": {k: scale(port[k] - w) / scale(w)
+                           for k, w in want.items()},
+            "sobel_jax": {k: scale(jax_g[k] - w) / scale(w)
+                          for k, w in want.items()},
+            "sobel_jax_dtype": dtype,
+            "losses": dict(zip(LOSSES, (abs(a - b) / abs(b) for a, b in zip(
+                flat(j_losses), flat(t_losses)))))}
 
 
 def card_r2(path: str, epochs) -> dict:
@@ -540,10 +608,10 @@ def run_jobs(jobs: list, cores, at_once: int = 2) -> list[int]:
 
 
 def phase_a(args, log) -> int:
-    sd_meta = load_export(args.state)
-    run = sd_meta[1]["meta"]
-    log(f"[f3_tail_replay] phase A: {args.state} ({json.dumps(sd_meta[2])};"
-        f" Adam {json.dumps(run)})")
+    _, adam, meta = load_export(args.state)
+    run = adam["meta"]
+    log(f"[f3_tail_replay] phase A: {args.state} ({json.dumps(meta)}; "
+        f"Adam {json.dumps(run)})")
     log(f"[f3_tail_replay] bounds, jax64 against {REFERENCE} at steps "
         f"{list(SNAP_STEPS)} and the epoch-end eval: {json.dumps(BOUNDS)}; "
         f"port32 and jax32 against {REFERENCE} recorded, bounded nowhere")
@@ -629,10 +697,33 @@ def one_case(args, log) -> int:
     return 0
 
 
+def parts(args, log) -> int:
+    """``--parts``: ``first_parts`` on the first batch after the state."""
+    _, adam, _ = load_export(args.state)
+    x_train, _ = data(args.data_dir, args.card_log, log)
+    epoch = adam["meta"]["epoch"] + 1
+    idx = batch_order(len(x_train), adam["meta"], epoch)[0]
+    res = first_parts(args.state, x_train[idx])
+    log(f"[f3_tail_replay] {args.state}, epoch {epoch}'s first batch, "
+        f"before any update: JAX float64 (plain BatchNorm) against the "
+        f"port's float64: outputs {res['output']:.3e} (the JAX DenseED's "
+        f"are {res['output_dtype']}, {res['output_vs_rounded']:.3e} from "
+        f"the port's rounded to float32); Sobel gradients of "
+        f"the port's output against numpy float64: the port's "
+        f"{json.dumps(res['sobel_port'])}, the JAX package's "
+        f"{json.dumps(res['sobel_jax'])} ({res['sobel_jax_dtype']}); "
+        f"losses {json.dumps(res['losses'])}")
+    log(json.dumps({"f3_tail_parts": res}))
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--phase", choices=["a", "b"], default=None)
     p.add_argument("--case", choices=list(CASES), default=None)
+    p.add_argument("--parts", action="store_true",
+                   help="where the JAX float64 step first parts from the "
+                        "port's, on the first batch after the state")
     p.add_argument("--state", default="logs/f3_tail_seed4_epoch280.npz")
     p.add_argument("--tails", nargs="*", default=[],
                    help="phase B: <case>:<state> entries")
@@ -665,6 +756,8 @@ def main(argv=None) -> int:
             return phase_a(args, log)
         if args.phase == "b":
             return phase_b(args, log)
+        if args.parts:
+            return parts(args, log)
         if args.case:
             return one_case(args, log)
         p.error("give --phase or --case")
