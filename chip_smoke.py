@@ -352,7 +352,7 @@ def fc_loss_fn(device, dtype, n: int = 64, width: int = 512,
     """The FC solver's objective at its default width: a CPPN width x depth
     (seeded weights) on the n^2 on-grid collocation points of a kle512
     field, 512 Dirichlet and 2n Neumann points.  Returns (loss of the flat
-    parameter vector, that vector)."""
+    parameter vector, that vector, the model)."""
     from pde_surrogate_torch.data.grf import sample_kle
     from pde_surrogate_torch.models.cppn import CPPN
     from pde_surrogate_torch.ops import darcy as td
@@ -379,7 +379,7 @@ def fc_loss_fn(device, dtype, n: int = 64, width: int = 512,
             model, p, (dirichlet,))[:, 0:1] - y_d) ** 2)
         return (td.mixed_residual_fc(net, x, K)
                 + 10.0 * (diri + td.neumann_boundary_mixed(net, neumann)))
-    return loss, flat.vector()
+    return loss, flat.vector(), model
 
 
 def phase_fc_parity():
@@ -390,7 +390,7 @@ def phase_fc_parity():
     from pde_surrogate_torch.train.lbfgs import value_and_grad
 
     def run(device, dtype=torch.float32):
-        loss, v = fc_loss_fn(device, dtype)
+        loss, v, _ = fc_loss_fn(device, dtype)
         value, grad = value_and_grad(loss, v)
         return float(value), grad.double().cpu()
     l_gpu, g_gpu = run("cuda")
@@ -1050,7 +1050,7 @@ def conv_solver_loss_fn(device, n: int = 64):
     """The conv solver's objective at its default width: Decoder [8,6]/16/48
     (seeded weights, train-mode BatchNorm) on a fixed (1, 1, n/4, n/4)
     latent, the Sobel mixed residual of a kle512 field.  Returns (loss of
-    the flat parameter vector, that vector)."""
+    the flat parameter vector, that vector, the Decoder)."""
     from pde_surrogate_torch.data.grf import sample_kle
     from pde_surrogate_torch.models.codec import Decoder
     from pde_surrogate_torch.ops.darcy import mixed_residual_loss
@@ -1066,10 +1066,10 @@ def conv_solver_loss_fn(device, n: int = 64):
     def loss(v):
         out = torch.func.functional_call(model, flat.unflatten(v), (latent,))
         return mixed_residual_loss(K, out, sobel)[0]
-    return loss, flat.vector()
+    return loss, flat.vector(), model
 
 
-def _adam_step(loss, v):
+def _adam_step(loss, v, _model=None):
     """One Adam step (lr 2e-3) of ``loss`` on the flat vector ``v``, as the
     solvers' warmup takes it."""
     x = v.clone().requires_grad_(True)
@@ -1548,6 +1548,208 @@ def phase_dpsp(path: "MainPath") -> None:
     run(_dpsp_checks, 1, device="cuda", workdir=path.tmp)
 
 
+def determinism_cases():
+    """[determinism] (a)'s step kinds: (label, case, steps per run)."""
+    from pde_surrogate_torch.tools import determinism_check as dc
+    return [
+        ("codec sobel", dc.codec_case("cuda", "sobel"), 3),
+        ("codec fvcg n_cg=64", dc.codec_case("cuda", "fvcg", fvcg_iters=64),
+         3),
+        ("codec mle", dc.codec_case("cuda", "mle"), 3),
+        ("cglow canonical reverse-KL", dc.glow_case("cuda"), 3),
+        ("solve_fc Adam", dc.adam_case(lambda: fc_loss_fn(
+            "cuda", torch.float32)), 3),
+        ("solve_conv Adam", dc.adam_case(lambda: conv_solver_loss_fn(
+            "cuda")), 3),
+        ("solve_conv L-BFGS zoom epoch", dc.zoom_case(
+            lambda: conv_solver_loss_fn("cuda")), 1),
+    ]
+
+
+def _kernel_us(step) -> dict[str, float]:
+    """Device microseconds by kernel name over one call of ``step`` (the
+    profiler's annotations of host ranges on the device left out)."""
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and "#" not in e.name):
+            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return out
+
+
+def _in_turns(step, modes: dict, reps: int, warmup: int) -> dict:
+    """``step`` under each of two modes (name -> context factory), in turns
+    (first, second, second, first): mean ms by CUDA events, both turns'
+    ms, peak memory (MiB) and device kernel time by name (us)."""
+    first, second = modes
+    out = {m: {"turns": []} for m in modes}
+    for m in (first, second, second, first):
+        with modes[m]():
+            out[m]["turns"].append(cuda_ms(step, reps, warmup))
+            out[m]["peak"] = _peak_mib(step)
+            if "kernels" not in out[m]:
+                out[m]["kernels"] = _kernel_us(step)
+    for m in modes:
+        out[m]["ms"] = float(np.mean(out[m]["turns"]))
+        out[m]["busy"] = sum(out[m]["kernels"].values()) / 1e3
+    return out
+
+
+def _cost_line(label: str, what: str, names: tuple, r: dict,
+               card: str) -> None:
+    """One ``[determinism] cost`` line; above +10 % of step or busy time
+    a ``kernels`` line with the kernels whose device time grew most."""
+    a, b = (r[n] for n in names)
+    log(f"[determinism] cost {label}: {what + ', ' if what else ''}"
+        f"{names[0]} {a['ms']:.3f} "
+        f"ms/step, {names[1]} {b['ms']:.3f} ({(a['ms'] / b['ms'] - 1) * 100:+.1f}"
+        f" %; turns {a['turns'][0]:.3f}/{a['turns'][1]:.3f} and "
+        f"{b['turns'][0]:.3f}/{b['turns'][1]:.3f}); device busy "
+        f"{a['busy']:.3f} / {b['busy']:.3f} ms "
+        f"({(a['busy'] / b['busy'] - 1) * 100:+.1f} %); peak "
+        f"{a['peak']:.1f} / {b['peak']:.1f} MiB; {card}")
+    if a["ms"] > 1.1 * b["ms"] or a["busy"] > 1.1 * b["busy"]:
+        ka, kb = a["kernels"], b["kernels"]
+        grew = sorted(((ka.get(k, 0.0) - kb.get(k, 0.0), k)
+                       for k in ka.keys() | kb.keys()), reverse=True)
+        log(f"[determinism] kernels {label} ({names[0]} / {names[1]}), grew "
+            f"most: " + "; ".join(
+                f"{k[:90]} {kb.get(k, 0.0):.0f} -> {ka.get(k, 0.0):.0f} us"
+                for _, k in grew[:5]))
+
+
+def _filling(select):
+    """``select_device`` that leaves fresh memory filled with NaN, so the
+    CLIs' runs in the check would show a read of memory no kernel wrote."""
+    def select_and_fill(*a, **kw):
+        device = select(*a, **kw)
+        torch.utils.deterministic.fill_uninitialized_memory = True
+        return device
+    return select_and_fill
+
+
+def phase_determinism(tmp: str) -> None:
+    """[determinism], with cuDNN / cuBLAS / PyTorch as ``select_device``
+    sets them, and in (a)-(c) every fresh allocation filled with NaN
+    (``torch.utils.deterministic.fill_uninitialized_memory``, which the
+    entry points leave off), so a read of memory no kernel wrote shows:
+    (a) each training step kind at full width run twice from the same
+    weights, batches and generator: every loss, parameter, BatchNorm
+    buffer and Adam moment ``torch.equal``;
+    (b) the codec CLI (``MainPath.WIDTH``, 512 / 128 fields) 3 epochs
+    twice and 1 epoch stopped and resumed to 3 (``--ckpt-epoch 1``), the
+    cGlow CLI (reference width, --data-init) 2 epochs twice and resumed
+    at 1: every tensor of the last checkpoint and its logged losses, R^2
+    and consistency equal;
+    (c) K1 twice on the same K at 64^2 (B=64) and 128^2 (the cluster
+    path): bitwise equal;
+    (d) what determinism costs, as the entry points run (no NaN fill):
+    each step kind of (a) with deterministic algorithms on and off in
+    turns, its CUDA-event time, device busy time and peak memory; then
+    the Sobel step with the NaN fill on and off."""
+    from unittest import mock
+
+    from pde_surrogate_torch.cli import _codec_common
+    from pde_surrogate_torch.cli import train_cglow_reverse_kl as glow_cli
+    from pde_surrogate_torch.cli import train_codec_mixed_residual as train
+    from pde_surrogate_torch.data.grf import sample_kle
+    from pde_surrogate_torch.ops.kernels.cg_darcy import solve_darcy_cg
+    from pde_surrogate_torch.tools import determinism_check as dc
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = True
+    card = gpu_name_power()
+    log(f"[determinism] deterministic algorithms "
+        f"{torch.are_deterministic_algorithms_enabled()}, cudnn.benchmark "
+        f"{torch.backends.cudnn.benchmark}, CUBLAS_WORKSPACE_CONFIG "
+        f"{os.environ.get('CUBLAS_WORKSPACE_CONFIG')}, NaN fill of fresh "
+        f"memory at the entry points {fill}")
+    check(torch.are_deterministic_algorithms_enabled()
+          and not torch.backends.cudnn.benchmark
+          and os.environ.get("CUBLAS_WORKSPACE_CONFIG") == ":4096:8",
+          "[determinism] select_device did not set the port's numerics")
+    cases = determinism_cases()
+    for label, make, n in cases:
+        tic = time.perf_counter()
+        diff = dc.repeat(make, n)
+        log(f"[determinism] (a) {label}: {n} step(s) twice, "
+            f"{'bitwise equal' if not diff else f'{len(diff)} differ'} "
+            f"({time.perf_counter() - tic:.2f} s){'' if not diff else ': '}"
+            f"{', '.join(diff[:8])}")
+        check(not diff, f"[determinism] (a) {label} does not repeat")
+        torch.cuda.empty_cache()
+
+    quiet = io.StringIO()
+    for label, module, argv, epochs, kw in (
+            ("codec CLI", train, MainPath.WIDTH + [
+                "--data-dir", os.path.join(tmp, "data2")], 3,
+             dict(saver=_codec_common)),
+            ("cglow CLI", glow_cli, [
+                "--imsize", "64", "--kle", "512", "--ntrain", "512",
+                "--ntest", "128", "--batch-size", "32", "--test-batch-size",
+                "64", "--ckpt-freq", "1", "--no-plot", "--device", "cuda",
+                "--data-init", "--data-dir", os.path.join(tmp, "data4")], 2,
+             {})):
+        tic = time.perf_counter()
+        select = _filling(_codec_common.select_device)
+        with contextlib.redirect_stdout(quiet), \
+                mock.patch.object(_codec_common, "select_device", select), \
+                mock.patch.object(glow_cli, "select_device", select):
+            diff = dc.cli_repeat(module, argv, os.path.join(
+                tmp, f"determinism_{label.split()[0]}"), epochs, 1, **kw)
+        log(f"[determinism] (b) {label}: {epochs} epochs twice and 1 + "
+            f"{epochs - 1} resumed, the last checkpoint's tensors and "
+            f"logged metrics: second run {diff['second'] or 'equal'}, "
+            f"resumed {diff['resumed'] or 'equal'} "
+            f"({time.perf_counter() - tic:.2f} s)")
+        check(not diff["second"] and not diff["resumed"],
+              f"[determinism] (b) the {label} does not repeat")
+
+    for n, bsz in ((64, 64), (128, 64)):
+        K = torch.from_numpy(sample_kle(bsz, n, 512, rng=n + 1)).cuda()
+        u1 = solve_darcy_cg(K, 24 * n)
+        u2 = solve_darcy_cg(K, 24 * n)
+        same = torch.equal(u1, u2)
+        log(f"[determinism] (c) K1 n={n} B={bsz}: two launches "
+            f"{'bitwise equal' if same else 'differ'}")
+        check(same and bool(torch.isfinite(u1).all()),
+              f"[determinism] (c) K1 at {n}^2 does not repeat")
+
+    torch.utils.deterministic.fill_uninitialized_memory = fill
+    modes = {"deterministic": contextlib.nullcontext,
+             "not": dc.nondeterministic}
+    for label, make, n in cases:
+        step, _ = make()
+        zoom = "zoom" in label
+        r = _in_turns(step, modes, reps=2 if zoom else 10,
+                      warmup=1 if zoom else 3)
+        _cost_line(label, "", ("deterministic", "not"), r, card)
+        del step
+        torch.cuda.empty_cache()
+
+    def filled(on):
+        @contextlib.contextmanager
+        def ctx():
+            torch.utils.deterministic.fill_uninitialized_memory = on
+            try:
+                yield
+            finally:
+                torch.utils.deterministic.fill_uninitialized_memory = fill
+        return ctx
+    step, _ = cases[0][1]()
+    r = _in_turns(step, {"on": filled(True), "off": filled(False)}, 10, 3)
+    _cost_line("codec sobel", "NaN fill of fresh memory", ("on", "off"), r,
+               card)
+    check(torch.utils.deterministic.fill_uninitialized_memory == fill,
+          "[determinism] the NaN fill was not restored")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1577,6 +1779,7 @@ def main() -> int:
         phase_step_profile()
         phase_dist(path)
         phase_dpsp(path)
+        phase_determinism(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches = sum(path.launches.values())

@@ -394,13 +394,18 @@ def train(args, mesh=None):
                            "lr": glow_lr(state), "skipped_steps": skipped,
                            "samples_per_sec": len(metrics) * args.batch_size
                            / epoch_s, "epoch_seconds": epoch_s})
-        if epoch % args.ckpt_freq == 0:
-            save_checkpoint(args.ckpt_dir, epoch, state,
-                            meta={"epoch": epoch, "logger": logger})
-            args.ckpt_epoch = epoch
-            if rank0:
-                save_args(args.run_dir, args)
-        test(epoch)
+        # eval before checkpointing, as the codec CLIs do: the meta
+        # sidecar then carries this epoch's test metrics, so a run resumed
+        # from it logs the history of the uninterrupted run
+        try:
+            test(epoch)
+        finally:
+            if epoch % args.ckpt_freq == 0:
+                save_checkpoint(args.ckpt_dir, epoch, state,
+                                meta={"epoch": epoch, "logger": logger})
+                args.ckpt_epoch = epoch
+                if rank0:
+                    save_args(args.run_dir, args)
 
     training_time = time.time() - tic
     print(f"Finished training {args.epochs} epochs with {args.ntrain} data "

@@ -52,7 +52,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..parallel.halo import (RowShard, block_operator, conv_halo, conv_rows,
                              exchange_rows, upsample_conv_rows,
-                             upsample_matrix)
+                             upsample_matrix, upsample_operator)
 from ..parallel.mesh import all_reduce_sum
 
 __all__ = ["DenseED", "Decoder", "BatchNorm2d", "batch_moments",
@@ -141,9 +141,12 @@ def upsample_nearest(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
 
 
 def upsample_bilinear(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
-    """Bilinear x2 upsampling with align_corners=True."""
-    return F.interpolate(x, scale_factor=scale, mode="bilinear",
-                         align_corners=True)
+    """Bilinear x2 upsampling with align_corners=True, as a product with
+    each axis's interpolation matrix (``upsample_operator``: deterministic
+    on CUDA, where ``F.interpolate``'s backward is not)."""
+    h, w = (upsample_operator(n, "bilinear", x.device, x.dtype, scale)
+            for n in x.shape[-2:])
+    return h @ x @ w.T
 
 
 _UPSAMPLE = {"nearest": upsample_nearest, "bilinear": upsample_bilinear}

@@ -421,8 +421,11 @@ def reconstruct_pressure(input: torch.Tensor, output: torch.Tensor
     n = output.shape[-1]
     dudx = -output[:, 1] / K
     mids = 0.5 * (dudx[:, :, 1:] + dudx[:, :, :-1]) / n
-    cum = torch.cat([torch.zeros_like(mids[:, :, :1]),
-                     torch.cumsum(mids, dim=2)], dim=2)
+    # the running sum as a product with an upper-triangular matrix of
+    # ones: torch.cumsum of a float CUDA tensor has no deterministic
+    # implementation
+    ones = torch.ones(n - 1, n - 1, device=mids.device, dtype=mids.dtype)
+    cum = F.pad(mids @ torch.triu(ones), (1, 0))
     u_left = 1.0 + cum
     u_right = cum - cum[:, :, -1:]
     w = torch.linspace(0.0, 1.0, n, device=output.device,

@@ -22,6 +22,7 @@ The JAX package leaves all of this to XLA's SPMD partitioner
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -31,7 +32,7 @@ import torch.nn.functional as F
 
 __all__ = ["RowShard", "exchange_rows", "with_halo", "conv_halo",
            "conv_rows", "block_operator", "upsample_matrix",
-           "upsample_conv_rows"]
+           "upsample_operator", "upsample_conv_rows"]
 
 
 @dataclass(frozen=True)
@@ -265,6 +266,17 @@ def upsample_matrix(n_in: int, mode: str, scale: int = 2) -> np.ndarray:
     return m
 
 
+@functools.lru_cache(maxsize=32)
+def upsample_operator(n_in: int, mode: str, device: torch.device,
+                      dtype: torch.dtype, scale: int = 2) -> torch.Tensor:
+    """``upsample_matrix`` on ``device`` in ``dtype``, made once per shape
+    (read only).  Bilinear upsampling runs as products with it: the
+    backward of torch's bilinear ``F.interpolate`` on CUDA sums by atomics
+    and has no deterministic implementation."""
+    return torch.from_numpy(upsample_matrix(n_in, mode, scale)).to(device,
+                                                                   dtype)
+
+
 def upsample_conv_rows(x, above, below, op: torch.Tensor, weight,
                        mode: str) -> torch.Tensor:
     """This block's rows of ``F.conv2d(upsample(field), weight,
@@ -276,7 +288,9 @@ def upsample_conv_rows(x, above, below, op: torch.Tensor, weight,
     upsampled as in the whole field."""
     p = weight.shape[-2] // 2
     y = torch.matmul(op, with_halo(x, above, below))
-    y = F.interpolate(y, size=(y.shape[-2], 2 * y.shape[-1]), mode=mode,
-                      align_corners=True if mode == "bilinear" else None)
+    if mode == "bilinear":
+        y = y @ upsample_operator(y.shape[-1], mode, y.device, y.dtype).T
+    else:
+        y = F.interpolate(y, size=(y.shape[-2], 2 * y.shape[-1]), mode=mode)
     none = y[..., :0, :]
     return _RowConv.apply(y, none, none, weight, 1, p)

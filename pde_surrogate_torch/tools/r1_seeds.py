@@ -18,9 +18,13 @@ R² of the checkpoints of the last 20 epochs into the BatchNorm running
 statistics and the weights (``..._split.log``; give the runs
 ``--extra --ckpt-freq 1``), and with ``--export-epoch N`` writes epoch N's
 model state beside it (``..._epoch<N>.npz``) and its Adam state
-(``..._epoch<N>_adam.npz``).  One JSON line at the end
-holds ``parse_log`` of every run; ``--parse`` only reads logs (the JAX
-package's too) and prints that line.
+(``..._epoch<N>_adam.npz``).  ``--sha256 E ...`` writes the sha256 of
+every tensor of each run's epoch-E checkpoints (model, Adam, step) into
+``..._sha256.log``.  One JSON line at the end holds ``parse_log`` of every
+run; ``--parse`` only reads logs (the JAX package's too) and prints that
+line; ``--compare A B [A B ...]`` holds pairs of logs of one seed against
+each other, every epoch's metric lines and the selection, and the
+``_sha256.log`` beside them (a run repeats bit for bit from its seed).
 
 Run:  python3 -m pde_surrogate_torch.tools.r1_seeds --runs tpuprec:1 \
           tpuprec:2 --breakdown tpuprec:1 --out logs
@@ -29,11 +33,14 @@ Run:  python3 -m pde_surrogate_torch.tools.r1_seeds --runs tpuprec:1 \
           --extra --ckpt-freq 1
       python3 -m pde_surrogate_torch.tools.r1_seeds --parse \
           logs/r1_port_f32_seed1.log logs/canon_kle512_300ep_r4.log
+      python3 -m pde_surrogate_torch.tools.r1_seeds --compare \
+          logs/d1a_f32_seed4.log logs/d1b_f32_seed4.log
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import re
@@ -96,6 +103,74 @@ def parse_log(text: str) -> dict:
                                      else None)}
 
 
+_METRIC_LINE = re.compile(r"^Epoch (\d+): (.*)$", re.M)
+_SELECTION = re.compile(r"^Label-free checkpoint selection.*$", re.M)
+
+
+def compare_logs(a: str, b: str) -> dict:
+    """Two logs' metric lines (``Epoch N: ...``: training loss, test R^2,
+    rel-L2, consistency; not the lines with the host's samples/s) epoch by
+    epoch, and their checkpoint selection."""
+    lines = []
+    for text in (a, b):
+        per: dict[int, list[str]] = {}
+        for e, line in _METRIC_LINE.findall(text):
+            per.setdefault(int(e), []).append(line)
+        lines.append(per)
+    epochs = sorted(lines[0].keys() | lines[1].keys())
+    differ = [e for e in epochs if lines[0].get(e) != lines[1].get(e)]
+    return {"epochs": len(epochs), "epochs_differing": len(differ),
+            "first_difference": differ[0] if differ else None,
+            "selection_equal": _SELECTION.findall(a) == _SELECTION.findall(b)}
+
+
+def tensor_sha256(path: str) -> list[str]:
+    """``<key> <dtype> <shape> <sha256 of its bytes>`` for every tensor of
+    a checkpoint file, ``<key> <value>`` for its other leaves."""
+    import torch
+
+    from .determinism_check import checkpoint_tensors
+    out = []
+    for k, v in sorted(checkpoint_tensors(path).items()):
+        if torch.is_tensor(v):
+            raw = v.detach().cpu().reshape(-1).contiguous().view(torch.uint8)
+            out.append(f"{k} {str(v.dtype)[6:]} {list(v.shape)} "
+                       f"{hashlib.sha256(raw.numpy().tobytes()).hexdigest()}")
+        else:
+            out.append(f"{k} {v!r}")
+    return out
+
+
+def _compare(paths: list[str]) -> int:
+    """``--compare``: each pair's logs, and the ``_sha256.log`` beside
+    them where both have one; prints a JSON line; 0 if every pair is
+    equal."""
+    if len(paths) % 2:
+        raise SystemExit("--compare takes pairs of logs")
+    result, same = {}, True
+    for a, b in zip(paths[::2], paths[1::2]):
+        texts = []
+        for path in (a, b):
+            with open(path) as f:
+                texts.append(f.read())
+        res = compare_logs(*texts)
+        shas = [p[:-4] + "_sha256.log" for p in (a, b)]
+        if all(os.path.isfile(p) for p in shas):
+            lines = []
+            for path in shas:
+                with open(path) as f:
+                    lines.append(f.read().splitlines())
+            res["sha256_lines"] = len(lines[0])
+            res["sha256_differing"] = len(set(lines[0]) ^ set(lines[1]))
+        res["identical"] = (res["epochs_differing"] == 0
+                            and res["selection_equal"]
+                            and res.get("sha256_differing", 0) == 0)
+        same &= res["identical"]
+        result[f"{os.path.basename(a)} vs {os.path.basename(b)}"] = res
+    print(json.dumps({"r1_compare": result}))
+    return 0 if same else 1
+
+
 def _key(entry: str) -> tuple[str, int]:
     prec, _, seed = entry.partition(":")
     if prec not in MODULES or not seed.isdigit():
@@ -130,11 +205,19 @@ def main(argv=None) -> int:
                    help="prefix of the logs' names")
     p.add_argument("--out", default="logs")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--sha256", nargs="*", type=int, default=[],
+                   help="epochs whose checkpoints' tensors each run's "
+                        "_sha256.log hashes (give the runs --ckpt-freq 1)")
     p.add_argument("--parse", nargs="*", default=[],
                    help="only parse these logs and print the JSON line")
+    p.add_argument("--compare", nargs="*", default=[],
+                   help="only compare these pairs of logs (and their "
+                        "_sha256.log) epoch by epoch")
     p.add_argument("--extra", nargs=argparse.REMAINDER, default=[],
                    help="further CLI flags (a shorter recipe for a try)")
     args = p.parse_args(argv)
+    if args.compare:
+        return _compare(args.compare)
     result = {}
     for path in args.parse:
         with open(path) as f:
@@ -170,10 +253,18 @@ def main(argv=None) -> int:
         ok &= rc == 0
         with open(log.name) as f:
             result[name] = {"rc": rc, **parse_log(f.read())}
-        if rc != 0 or (prec, seed) not in breakdown | split:
+        if rc != 0 or ((prec, seed) not in breakdown | split
+                       and not args.sha256):
             continue
         (run_dir,) = [r for r, _, files in os.walk(os.path.join(work, name))
                       if "args.txt" in files]
+        if args.sha256:
+            with open(os.path.join(args.out, f"{name}_sha256.log"),
+                      "w") as f:
+                for epoch in args.sha256:
+                    for line in tensor_sha256(os.path.join(
+                            run_dir, "checkpoints", f"model_epoch{epoch}.pt")):
+                        f.write(f"epoch {epoch} {line}\n")
         if (prec, seed) in breakdown:
             rc = _follow_up("r2_breakdown", run_dir, args, os.path.join(
                 args.out, f"{name}_breakdown.log"),

@@ -49,16 +49,44 @@ def make_generator(device, *entropy: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
+# cuBLAS's workspace per handle: PyTorch sizes it from this variable once,
+# when the process makes its first cuBLAS handle; a fixed size keeps every
+# GEMM on one algorithm and one summation order
+CUBLAS_WORKSPACE_CONFIG = ":4096:8"
+_DETERMINISTIC_CUBLAS = (":4096:8", ":16:8")
+
+
 def select_device(name: str = "cuda",
                   local_rank: int | None = None) -> torch.device:
     """The device an entry point runs on, with the port's numerics set.
 
     f32 convolutions and matmuls stay full f32 (TF32 off), as the JAX
-    package runs f32 convs and HIGHEST-precision Sobel products.  Asking for
-    CUDA without a GPU raises: the entry points never fall back to the CPU.
-    ``local_rank`` (a data-parallel rank's index on its host) picks
-    ``cuda:local_rank`` and makes it the current device; the CPU ignores it.
+    package runs f32 convs and HIGHEST-precision Sobel products.  A run
+    repeats bit for bit from its seed, as the JAX package's do: PyTorch's
+    deterministic algorithms are on (cuDNN's deterministic convolutions,
+    no benchmark autotuning; an op without a deterministic implementation
+    raises; fresh memory is not filled with NaN) and cuBLAS's workspace is
+    fixed by ``CUBLAS_WORKSPACE_CONFIG``.
+    That variable takes effect only if it is in the environment before
+    the process's first CUDA op, so this raises when CUDA has started
+    without it.  Asking for CUDA without a GPU raises: the entry points
+    never fall back to the CPU.  ``local_rank`` (a data-parallel rank's
+    index on its host) picks ``cuda:local_rank`` and makes it the current
+    device; the CPU ignores it.
     """
+    if os.environ.get("CUBLAS_WORKSPACE_CONFIG") not in _DETERMINISTIC_CUBLAS:
+        if torch.cuda.is_initialized():
+            raise RuntimeError(
+                "CUDA started before CUBLAS_WORKSPACE_CONFIG was set, so "
+                "cuBLAS's workspace is not fixed; call select_device before "
+                "the first CUDA op")
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = CUBLAS_WORKSPACE_CONFIG
+    torch.use_deterministic_algorithms(True)
+    # deterministic mode fills every fresh allocation with NaN by default;
+    # no result depends on it (chip_smoke.py's [determinism] check runs
+    # with it on) and it costs device time on every step, so it is off
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device(name)

@@ -867,7 +867,8 @@ def test_cglow_data_parallel_cli(tmp_path):
 def test_cglow_resume_matches_uninterrupted(tmp_path):
     """Resuming from epoch 1 redraws what the uninterrupted run drew: the
     step noise is a function of (seed, step), the batches of (seed, epoch),
-    and the checkpoint holds the counters, Adam and the BN stats."""
+    and the checkpoint holds the counters, Adam and the BN stats: the
+    weights bit for bit."""
     (state, _), run = _glow_run(tmp_path, "--epochs", "2")
     full = _weights(run, 2)
     (state, logger), _ = _glow_run(tmp_path, "--epochs", "2", "--resume",
@@ -875,7 +876,7 @@ def test_cglow_resume_matches_uninterrupted(tmp_path):
     assert state.step == state.updates == 4 and len(logger["loss_train"]) == 2
     for k, v in full.items():
         torch.testing.assert_close(state.model.state_dict()[k], v, rtol=0,
-                                   atol=1e-6, msg=k)
+                                   atol=0, msg=k)
 
 
 @pytest.mark.parametrize("physics", ["sobel", "fvcg"])
@@ -883,7 +884,7 @@ def test_codec_resume_matches_uninterrupted(tmp_path, capsys, physics):
     """The codec CLI resumed from epoch 1 (``--ckpt-epoch 1``, the
     checkpoint of an uninterrupted run copied into a fresh exp dir) ends
     where the uninterrupted 2-epoch run ends: the weights and BN stats
-    within 1e-6, the same history for the label-free checkpoint selection
+    bit for bit, the same history for the label-free checkpoint selection
     (the last checkpoint's ``ckpt_consistency``, and its loss and R^2
     lists) and the same selected epoch.  The batches are a function of
     (seed, epoch) and the checkpoint holds Adam, the step count and the BN
@@ -905,7 +906,7 @@ def test_codec_resume_matches_uninterrupted(tmp_path, capsys, physics):
     assert state.step == 4
     for k, v in _weights(run, 2).items():
         torch.testing.assert_close(state.model.state_dict()[k], v, rtol=0,
-                                   atol=1e-6, msg=k)
+                                   atol=0, msg=k)
     metas = [json.loads((r / "checkpoints" / "model_epoch2.json").read_text())
              for r in (run, run2)]
     hist = [dict(m["ckpt_consistency"]) for m in metas]

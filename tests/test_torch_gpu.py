@@ -5,14 +5,21 @@ machine without the JAX package:
     python -m pytest tests/test_torch_gpu.py -m gpu -q
 """
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
 
+from pde_surrogate_torch.cli import _codec_common
+from pde_surrogate_torch.cli import train_codec_mixed_residual as t_train
 from pde_surrogate_torch.data.grf import sample_channelized, sample_kle
 from pde_surrogate_torch.ops.kernels.cg_darcy import (solve_darcy_cg,
                                                       solve_darcy_cg_plain)
 from pde_surrogate_torch.solvers.fd_darcy import solve_darcy_batch_fast
+from pde_surrogate_torch.tools import determinism_check as dc
 
 pytestmark = pytest.mark.gpu
 
@@ -21,7 +28,8 @@ pytestmark = pytest.mark.gpu
 def cuda():
     """The card with the port's numerics, as every entry point sets them:
     TF32 off (torch's default runs cuDNN convolutions in TF32, ~1e-3
-    relative)."""
+    relative), deterministic algorithms on and cuBLAS's workspace fixed,
+    before the first CUDA op of the process."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from pde_surrogate_torch.utils.config import select_device
@@ -398,3 +406,71 @@ def test_dpsp_glow_steps_on_one_nccl_rank_match_plain(cuda, tmp_path):
     for k, v in want["state"].items():
         torch.testing.assert_close(got["state"][k], v, rtol=0,
                                    atol=dc.CODEC_STATE_ATOL, msg=k)
+
+
+@pytest.mark.parametrize("kind", ["sobel", "fvcg", "mle"])
+def test_determinism_codec_steps_repeat(cuda, kind):
+    """Three DenseED [6,8,6]/16/48 steps at 64^2, batch 32, twice from the
+    same seeds: every loss, parameter, BatchNorm buffer and Adam moment
+    bitwise equal (``chip_smoke.py`` ``[determinism] (a)``)."""
+    case = dc.codec_case(cuda, kind,
+                         fvcg_iters=64 if kind == "fvcg" else None)
+    assert dc.repeat(case) == []
+
+
+def test_determinism_glow_steps_repeat(cuda):
+    """Three reverse-KL steps of the canonical cGlow (enc [3,3,3,3], flow
+    [4,4,4,4], 64^2, batch 32) twice: bitwise equal."""
+    assert dc.repeat(dc.glow_case(cuda)) == []
+
+
+def test_determinism_codec_cli_resume_is_exact(cuda, tmp_path):
+    """The codec CLI at 32^2 (K1 labels the val split), 3 epochs twice and
+    stopped after epoch 1 and resumed: the last checkpoint's every tensor
+    and the logged losses, R^2 and consistency equal."""
+    argv = ["--imsize", "32", "--blocks", "3,4,3", "--growth-rate", "8",
+            "--init-features", "16", "--ntrain", "64", "--ntest", "32",
+            "--batch-size", "16", "--test-batch-size", "32", "--ckpt-freq",
+            "1", "--no-plot", "--device", "cuda", "--data-dir",
+            str(tmp_path / "d")]
+    assert dc.cli_repeat(t_train, argv, str(tmp_path), 3, 1,
+                         saver=_codec_common) == {"second": [],
+                                                  "resumed": []}
+
+
+@pytest.mark.parametrize("n", [64, 128])
+def test_determinism_k1_launches_repeat(cuda, n):
+    """K1 twice on the same K (64^2 in one CTA a field, 128^2 in a
+    cluster): bitwise equal, its sums in a fixed order."""
+    K = torch.from_numpy(sample_kle(64, n, 512, rng=n)).to(cuda)
+    assert torch.equal(solve_darcy_cg(K, 24 * n), solve_darcy_cg(K, 24 * n))
+
+
+def _python(code: str) -> subprocess.CompletedProcess:
+    env = {k: v for k, v in os.environ.items()
+           if k != "CUBLAS_WORKSPACE_CONFIG"}
+    env["PYTHONPATH"] = os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))
+    return subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_determinism_cublas_config_must_precede_cuda(cuda):
+    """CUBLAS_WORKSPACE_CONFIG takes effect only if set before the first
+    CUDA op, and torch does not check the order (torch 2.11 runs a GEMM
+    under deterministic algorithms without the variable): a process that
+    calls select_device after a CUDA op is refused; one that calls it
+    first runs a GEMM with the variable set and deterministic algorithms
+    on."""
+    refused = _python("import torch; torch.ones(1, device='cuda'); from "
+                      "pde_surrogate_torch.utils.config import select_device"
+                      "; select_device('cuda')")
+    assert refused.returncode != 0
+    assert "CUBLAS_WORKSPACE_CONFIG" in refused.stderr
+    first = _python("from pde_surrogate_torch.utils.config import "
+                    "select_device; select_device('cuda'); import os, torch; "
+                    "print(os.environ['CUBLAS_WORKSPACE_CONFIG'], "
+                    "torch.are_deterministic_algorithms_enabled()); "
+                    "a = torch.randn(256, 256, device='cuda'); "
+                    "print(bool(torch.isfinite(a @ a).all()))")
+    assert first.stdout.split() == [":4096:8", "True", "True"], first.stderr

@@ -175,6 +175,33 @@ def test_r1_seeds_runs_side_by_side(tmp_path, capsys, monkeypatch):
         "DenseED convs: bf16-rounded operands")
 
 
+def test_r1_seeds_repeat_bit_for_bit(tmp_path, capsys, monkeypatch):
+    """Two calls of ``tools/r1_seeds.py`` at 16² (2 epochs, a checkpoint
+    every epoch), each with its own ``--name``: seed 3's two runs give the
+    same metric lines every epoch and the same sha256 of every checkpoint
+    tensor at epochs 1 and 2 (``--compare`` exits 0); seed 3 against seed
+    4 differs (exits 1)."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")     # the runs' processes
+    for name, runs in (("a", ["f32:3"]), ("b", ["f32:3", "f32:4"])):
+        assert r1_seeds.main(["--device", "cpu", "--runs", *runs, "--name",
+                              name, "--sha256", "1", "2", "--out",
+                              str(tmp_path), "--extra", *TINY[2:]]) == 0
+    capsys.readouterr()
+    sha = (tmp_path / "a_f32_seed3_sha256.log").read_text().splitlines()
+    assert sum(line.startswith("epoch 2 model.") for line in sha) > 10
+    assert any(line.startswith("epoch 1 optimizer.state.") for line in sha)
+    logs = [str(tmp_path / f"{n}_f32_seed{s}.log")
+            for n, s in (("a", 3), ("b", 3), ("a", 3), ("b", 4))]
+    assert r1_seeds.main(["--compare", *logs[:2]]) == 0
+    got = json.loads(capsys.readouterr().out)["r1_compare"]
+    (same,) = got.values()
+    assert same["identical"] and same["epochs"] == 2
+    assert same["sha256_lines"] == len(sha) and same["sha256_differing"] == 0
+    assert r1_seeds.main(["--compare", *logs[2:]]) == 1
+    (other,) = json.loads(capsys.readouterr().out)["r1_compare"].values()
+    assert other["first_difference"] == 1 and other["sha256_differing"] > 0
+
+
 @pytest.mark.parametrize("log", ["canon_kle512_300ep_r4.log",
                                  "sharedstats_kle512_300ep.log"])
 def test_r1_seeds_parses_the_band_logs(log):
