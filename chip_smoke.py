@@ -86,6 +86,19 @@
    [6,6,6], 64^2, batch 32) with ActNorm data-init over the mesh and
    three float64 reverse-KL losses within 2e-5, the f32 step timed with
    its peak.
+10. ``[determinism]``, under the numerics every entry point's
+   ``select_device`` sets (deterministic algorithms, a fixed cuBLAS
+   workspace) with fresh memory filled with NaN: (a) each training step
+   kind at full width (DenseED sobel, fvcg n_cg 64, MLE; the canonical
+   cGlow's reverse-KL; both solvers' Adam steps and a zoom L-BFGS epoch)
+   twice from the same seeds, every loss, parameter, buffer and optimizer
+   moment bitwise equal; (b) the codec CLI 3 epochs twice and stopped
+   after 1 and resumed, the cGlow CLI 2 epochs likewise, every tensor of
+   the last checkpoint and the logged metrics equal; (c) K1 twice at 64^2
+   and 128^2, bitwise equal; (d) each step kind with deterministic
+   algorithms on and off in turns (CUDA-event ms, device busy time, peak
+   memory, the kernels that grew) and the Sobel step with the NaN fill
+   on and off, beside the card's name and power limit.
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Any failed check raises
 and the script exits non-zero without that line; so does a machine without

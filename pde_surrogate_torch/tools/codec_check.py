@@ -165,15 +165,10 @@ def run_variant_checks(device, **shape) -> tuple[list, dict]:
     """Every variant's step on ``device`` and the f32, bf16 and float64
     steps on the CPU; returns (``variant_checks`` rows, the steps on
     ``device`` with ``cpu f32``, ``cpu bf16`` and ``f64`` added)."""
-    # cuDNN's deterministic algorithms: two runs of one path are bitwise
-    # equal, so remat is compared with plain exactly
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        steps = {name: codec_step(device, **shape, **opt)
-                 for name, opt in _VARIANTS.items()}
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
+    # the port's deterministic algorithms (select_device): two runs of one
+    # path are bitwise equal, so remat is compared with plain exactly
+    steps = {name: codec_step(device, **shape, **opt)
+             for name, opt in _VARIANTS.items()}
     steps["cpu f32"] = codec_step("cpu", **shape)
     steps["cpu bf16"] = codec_step("cpu", **shape, dtype=torch.bfloat16)
     steps["f64"] = codec_step("cpu", **shape, float64=True)

@@ -97,12 +97,12 @@ def _kle(batch: int, imsize: int, rng: int, device) -> torch.Tensor:
 
 def codec_case(device, kind: str, imsize: int = 64, blocks=(6, 8, 6),
                growth_rate: int = 16, init_features: int = 48,
-               batch: int = 32, fvcg_iters: int | None = None,
-               drop_rate: float = 0.0):
+               batch: int = 32, fvcg_iters: int | None = None):
     """The DenseED's training step (Adam + OneCycle, lr 1e-3), its weights
-    from torch seed 0, step i on kle512 batch i: ``kind`` ``mle``
-    (labels drawn from numpy seed i) or a physics objective (``sobel``,
-    ``fvcg``, ``sobel_fvcg``)."""
+    from torch seed 0, step i on kle512 batch i mod 3 (made on the device
+    beforehand, so a timed step holds no data generation): ``kind``
+    ``mle`` (labels drawn from numpy seed i mod 3) or a physics objective
+    (``sobel``, ``fvcg``, ``sobel_fvcg``)."""
     from ..models.codec import DenseED
     from ..ops.filters import SobelFilter
     from ..train.codec_trainer import (create_state, make_mixed_residual_step,
@@ -111,8 +111,7 @@ def codec_case(device, kind: str, imsize: int = 64, blocks=(6, 8, 6),
     def make():
         torch.manual_seed(0)
         model = DenseED(1, 3, imsize, list(blocks), growth_rate=growth_rate,
-                        init_features=init_features,
-                        drop_rate=drop_rate).to(device)
+                        init_features=init_features).to(device)
         state = create_state(model, lr_max=1e-3, total_steps=1000)
         if kind == "mle":
             fn = make_mle_step(state)
@@ -120,26 +119,26 @@ def codec_case(device, kind: str, imsize: int = 64, blocks=(6, 8, 6),
             fn = make_mixed_residual_step(state, SobelFilter(imsize),
                                           10.0, physics=kind,
                                           fvcg_iters=fvcg_iters)
+        xs = [_kle(batch, imsize, i, device) for i in range(3)]
+        ys = [torch.from_numpy(np.random.default_rng(i).normal(
+            0, 1, (batch, 3, imsize, imsize)).astype(np.float32)).to(device)
+            for i in range(3)] if kind == "mle" else None
 
         def step():
-            i = state.step
-            x = _kle(batch, imsize, i, device)
-            if kind != "mle":
-                return fn(x)
-            y = np.random.default_rng(i).normal(
-                0, 1, (batch, 3, imsize, imsize)).astype(np.float32)
-            return fn(x, torch.from_numpy(y).to(device))
+            i = state.step % 3
+            return fn(xs[i]) if ys is None else fn(xs[i], ys[i])
         return step, lambda: training_state(model, state.optimizer)
     return make
 
 
 def glow_case(device, enc=(3, 3, 3, 3), flow=(4, 4, 4, 4), imsize: int = 64,
-              batch: int = 32, physics: str = "sobel",
-              fvcg_iters: int | None = None):
-    """The cGlow's reverse-KL step (beta 150, weight bound 50, lr 1.5e-3,
-    the NaN guard on; default: the canonical enc [3,3,3,3] flow [4,4,4,4])
+              batch: int = 32):
+    """The cGlow's Sobel reverse-KL step (beta 150, weight bound 50, lr
+    1.5e-3, the NaN guard on; default: the canonical enc [3,3,3,3] flow
+    [4,4,4,4])
     from ``tools/glow_check.glow_model``'s seeded weights, its noise from
-    the state's generator (seed 1, step i), step i on kle512 batch i."""
+    the state's generator (seed 1, step i), step i on kle512 batch i mod
+    3 (made on the device beforehand)."""
     from ..ops.filters import SobelFilter
     from ..train.glow_trainer import create_glow_state, make_reverse_kl_step
     from .glow_check import glow_model
@@ -149,11 +148,11 @@ def glow_case(device, enc=(3, 3, 3, 3), flow=(4, 4, 4, 4), imsize: int = 64,
         state = create_glow_state(model, lr_max=1.5e-3, total_steps=1000,
                                   seed=1)
         fn = make_reverse_kl_step(state, SobelFilter(imsize),
-                                  150.0, 50.0, 3 * imsize * imsize,
-                                  physics=physics, fvcg_iters=fvcg_iters)
+                                  150.0, 50.0, 3 * imsize * imsize)
+        xs = [_kle(batch, imsize, i, device) for i in range(3)]
 
         def step():
-            return fn(_kle(batch, imsize, state.step, device))
+            return fn(xs[state.step % 3])
         return step, lambda: training_state(model, state.optimizer)
     return make
 
