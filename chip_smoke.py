@@ -1144,6 +1144,27 @@ def phase_solver_step_times():
         log(f"[step] {label}: {ms:.3f} ms/step")
 
 
+def profile_call(fn) -> tuple[float, list]:
+    """One call of ``fn`` under torch.profiler: its wall time by CUDA
+    events (ms) and the device kernels it launched (the profiler's
+    events; its annotations of host ranges on the device, named with a
+    '#', left out)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+    return start.elapsed_time(end), [
+        e for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and "#" not in e.name]
+
+
 def phase_step_profile():
     """One step of sobel, of its bf16, concat-free and remat variants and
     of fvcg (n_cg=64) at 64^2, one Adam step of each solver and one cGlow
@@ -1151,7 +1172,6 @@ def phase_step_profile():
     torch.profiler: device kernels launched and their summed time against
     the step's wall time (CUDA events); the convolution and matmul FLOPs of
     one step, counted by torch.utils.flop_counter, over that busy time."""
-    from torch.profiler import ProfilerActivity, profile
     from torch.utils.flop_counter import FlopCounterMode
     cases = [(c[0], lambda c=c: _step_fn(*c[1:]))
              for c in STEP_CASES[:2] + VARIANT_STEPS]
@@ -1164,18 +1184,7 @@ def phase_step_profile():
         with FlopCounterMode(display=False) as counter:
             fn()
         flops = counter.get_total_flops()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-        wall = start.elapsed_time(end)
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        wall, kernels = profile_call(fn)
         busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
         if kernels:
             log(f"[profile] {label}: {len(kernels)} device kernels in one "
@@ -1200,14 +1209,15 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(((a.double() - b.double()).abs() / b.double().abs()).max())
 
 
-def _turns(plain, mesh, reps: int, warmup: int) -> tuple[float, float]:
-    """ms per call of ``plain`` and of ``mesh`` by CUDA events, timed in
-    turns (plain, mesh, mesh, plain) and averaged per version."""
-    p1 = cuda_ms(plain, reps, warmup)
-    m1 = cuda_ms(mesh, reps, warmup)
-    m2 = cuda_ms(mesh, reps, warmup)
-    p2 = cuda_ms(plain, reps, warmup)
-    return (p1 + p2) / 2, (m1 + m2) / 2
+def _turns(first, second, reps: int, warmup: int) -> tuple[float, float]:
+    """ms per call of ``first`` and of ``second`` (zero-argument
+    callables, such as the plain and the mesh step) by CUDA events, timed
+    in turns (first, second, second, first) and averaged per version."""
+    f1 = cuda_ms(first, reps, warmup)
+    s1 = cuda_ms(second, reps, warmup)
+    s2 = cuda_ms(second, reps, warmup)
+    f2 = cuda_ms(first, reps, warmup)
+    return (f1 + f2) / 2, (s1 + s2) / 2
 
 
 def _dist_checks(mesh) -> None:
@@ -1579,39 +1589,45 @@ def determinism_cases():
     ]
 
 
-def _kernel_us(step) -> dict[str, float]:
-    """Device microseconds by kernel name over one call of ``step`` (the
-    profiler's annotations of host ranges on the device left out)."""
-    from torch.profiler import ProfilerActivity, profile
-    step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step()
-        torch.cuda.synchronize()
-    out: dict[str, float] = {}
-    for e in prof.events():
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and "#" not in e.name):
-            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us()
-    return out
+@contextlib.contextmanager
+def nondeterministic():
+    """PyTorch's deterministic algorithms and cuDNN's deterministic flag
+    off inside, restored after: only to time what determinism costs;
+    nothing of the port runs under it."""
+    mode = torch.are_deterministic_algorithms_enabled()
+    cudnn = torch.backends.cudnn.deterministic
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(mode)
+        torch.backends.cudnn.deterministic = cudnn
 
 
-def _in_turns(step, modes: dict, reps: int, warmup: int) -> dict:
-    """``step`` under each of two modes (name -> context factory), in turns
-    (first, second, second, first): mean ms by CUDA events, both turns'
-    ms, peak memory (MiB) and device kernel time by name (us)."""
-    first, second = modes
-    out = {m: {"turns": []} for m in modes}
-    for m in (first, second, second, first):
-        with modes[m]():
-            out[m]["turns"].append(cuda_ms(step, reps, warmup))
-            out[m]["peak"] = _peak_mib(step)
-            if "kernels" not in out[m]:
-                out[m]["kernels"] = _kernel_us(step)
-    for m in modes:
-        out[m]["ms"] = float(np.mean(out[m]["turns"]))
-        out[m]["busy"] = sum(out[m]["kernels"].values()) / 1e3
+def _under(mode, step):
+    """``step`` with the context ``mode()`` entered around each call."""
+    def run():
+        with mode():
+            return step()
+    return run
+
+
+def _in_modes(step, modes: dict, reps: int, warmup: int) -> dict:
+    """``step`` under each of two modes (name -> context factory), timed
+    in turns by ``_turns``: mean ms, peak memory (MiB), device busy time
+    (ms) and device kernel time by name (us) under each."""
+    runs = {m: _under(mode, step) for m, mode in modes.items()}
+    out = {m: {"ms": ms} for m, ms in zip(
+        modes, _turns(*runs.values(), reps, warmup))}
+    for m, run in runs.items():
+        out[m]["peak"] = _peak_mib(run)
+        kernels: dict[str, float] = {}
+        for e in profile_call(run)[1]:
+            kernels[e.name] = kernels.get(e.name, 0.0) \
+                + e.time_range.elapsed_us()
+        out[m]["kernels"] = kernels
+        out[m]["busy"] = sum(kernels.values()) / 1e3
     return out
 
 
@@ -1621,10 +1637,8 @@ def _cost_line(label: str, what: str, names: tuple, r: dict,
     a ``kernels`` line with the kernels whose device time grew most."""
     a, b = (r[n] for n in names)
     log(f"[determinism] cost {label}: {what + ', ' if what else ''}"
-        f"{names[0]} {a['ms']:.3f} "
-        f"ms/step, {names[1]} {b['ms']:.3f} ({(a['ms'] / b['ms'] - 1) * 100:+.1f}"
-        f" %; turns {a['turns'][0]:.3f}/{a['turns'][1]:.3f} and "
-        f"{b['turns'][0]:.3f}/{b['turns'][1]:.3f}); device busy "
+        f"{names[0]} {a['ms']:.3f} ms/step, {names[1]} {b['ms']:.3f} "
+        f"({(a['ms'] / b['ms'] - 1) * 100:+.1f} %, in turns); device busy "
         f"{a['busy']:.3f} / {b['busy']:.3f} ms "
         f"({(a['busy'] / b['busy'] - 1) * 100:+.1f} %); peak "
         f"{a['peak']:.1f} / {b['peak']:.1f} MiB; {card}")
@@ -1736,11 +1750,11 @@ def phase_determinism(tmp: str) -> None:
 
     torch.utils.deterministic.fill_uninitialized_memory = fill
     modes = {"deterministic": contextlib.nullcontext,
-             "not": dc.nondeterministic}
+             "not": nondeterministic}
     for label, make, n in cases:
         step, _ = make()
         zoom = "zoom" in label
-        r = _in_turns(step, modes, reps=2 if zoom else 10,
+        r = _in_modes(step, modes, reps=2 if zoom else 10,
                       warmup=1 if zoom else 3)
         _cost_line(label, "", ("deterministic", "not"), r, card)
         del step
@@ -1756,7 +1770,7 @@ def phase_determinism(tmp: str) -> None:
                 torch.utils.deterministic.fill_uninitialized_memory = fill
         return ctx
     step, _ = cases[0][1]()
-    r = _in_turns(step, {"on": filled(True), "off": filled(False)}, 10, 3)
+    r = _in_modes(step, {"on": filled(True), "off": filled(False)}, 10, 3)
     _cost_line("codec sobel", "NaN fill of fresh memory", ("on", "off"), r,
                card)
     check(torch.utils.deterministic.fill_uninitialized_memory == fill,

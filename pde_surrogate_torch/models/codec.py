@@ -52,7 +52,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..parallel.halo import (RowShard, block_operator, conv_halo, conv_rows,
                              exchange_rows, upsample_conv_rows,
-                             upsample_matrix, upsample_operator)
+                             upsample_dtype, upsample_matrix,
+                             upsample_operator)
 from ..parallel.mesh import all_reduce_sum
 
 __all__ = ["DenseED", "Decoder", "BatchNorm2d", "batch_moments",
@@ -143,10 +144,12 @@ def upsample_nearest(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
 def upsample_bilinear(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
     """Bilinear x2 upsampling with align_corners=True, as a product with
     each axis's interpolation matrix (``upsample_operator``: deterministic
-    on CUDA, where ``F.interpolate``'s backward is not)."""
+    on CUDA, where ``F.interpolate``'s backward is not), in f32 for a bf16
+    input as the JAX package's f32 matrices promote it, returned in
+    ``x``'s dtype."""
     h, w = (upsample_operator(n, "bilinear", x.device, x.dtype, scale)
             for n in x.shape[-2:])
-    return h @ x @ w.T
+    return (h @ x.to(h.dtype) @ w.T).to(x.dtype)
 
 
 _UPSAMPLE = {"nearest": upsample_nearest, "bilinear": upsample_bilinear}
@@ -195,7 +198,8 @@ class Conv2d(nn.Conv2d):
             op, a, b = block_operator(
                 upsample_matrix(x.shape[-2] * self.rows.size, mode),
                 self.rows.index, self.rows.size, extra=p)
-            cache[key] = (torch.from_numpy(op).to(x.device, x.dtype), a, b)
+            cache[key] = (torch.from_numpy(op).to(
+                x.device, upsample_dtype(x.dtype)), a, b)
         op, a, b = cache[key]
         y = upsample_conv_rows(x, *exchange_rows(x, a, b, self.rows), op,
                                self.weight.to(x.dtype), mode)

@@ -32,7 +32,7 @@ import torch.nn.functional as F
 
 __all__ = ["RowShard", "exchange_rows", "with_halo", "conv_halo",
            "conv_rows", "block_operator", "upsample_matrix",
-           "upsample_operator", "upsample_conv_rows"]
+           "upsample_dtype", "upsample_operator", "upsample_conv_rows"]
 
 
 @dataclass(frozen=True)
@@ -266,15 +266,22 @@ def upsample_matrix(n_in: int, mode: str, scale: int = 2) -> np.ndarray:
     return m
 
 
+def upsample_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype upsampling's products run in: f32 for an f32 or narrower
+    input (the JAX package's f32 matrices promote a bf16 input), f64 for
+    f64."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 @functools.lru_cache(maxsize=32)
 def upsample_operator(n_in: int, mode: str, device: torch.device,
                       dtype: torch.dtype, scale: int = 2) -> torch.Tensor:
-    """``upsample_matrix`` on ``device`` in ``dtype``, made once per shape
-    (read only).  Bilinear upsampling runs as products with it: the
+    """``upsample_matrix`` on ``device`` in ``upsample_dtype(dtype)``, made
+    once per shape (read only).  Upsampling runs as products with it: the
     backward of torch's bilinear ``F.interpolate`` on CUDA sums by atomics
     and has no deterministic implementation."""
-    return torch.from_numpy(upsample_matrix(n_in, mode, scale)).to(device,
-                                                                   dtype)
+    return torch.from_numpy(upsample_matrix(n_in, mode, scale)).to(
+        device, upsample_dtype(dtype))
 
 
 def upsample_conv_rows(x, above, below, op: torch.Tensor, weight,
@@ -285,12 +292,11 @@ def upsample_conv_rows(x, above, below, op: torch.Tensor, weight,
     (``block_operator(upsample_matrix(...), ..., p)``), so the low-resolution
     halo becomes the p upsampled rows the conv reads on each side, zero at
     a wall (the conv's zero padding, not the upsampling's clamp); W is
-    upsampled as in the whole field."""
+    upsampled as in the whole field.  Both products run in
+    ``upsample_dtype(x.dtype)``, the conv in ``x``'s dtype."""
     p = weight.shape[-2] // 2
-    y = torch.matmul(op, with_halo(x, above, below))
-    if mode == "bilinear":
-        y = y @ upsample_operator(y.shape[-1], mode, y.device, y.dtype).T
-    else:
-        y = F.interpolate(y, size=(y.shape[-2], 2 * y.shape[-1]), mode=mode)
+    ct = upsample_dtype(x.dtype)
+    y = op.to(ct) @ with_halo(x, above, below).to(ct)
+    y = (y @ upsample_operator(y.shape[-1], mode, y.device, ct).T).to(x.dtype)
     none = y[..., :0, :]
     return _RowConv.apply(y, none, none, weight, 1, p)

@@ -22,8 +22,6 @@ on the card):
   stopped after an epoch's checkpoint and resumed from it
   (``--ckpt-epoch``); every tensor of the last checkpoint and its JSON
   sidecar (the logged losses, R^2 and consistency) compared.
-* ``nondeterministic``: deterministic algorithms off, for timing what
-  they cost; nothing of the port runs under it.
 """
 
 from __future__ import annotations
@@ -38,7 +36,7 @@ import torch
 
 __all__ = ["training_state", "run_case", "differences", "repeat",
            "codec_case", "glow_case", "adam_case", "zoom_case",
-           "checkpoint_tensors", "cli_repeat", "nondeterministic"]
+           "checkpoint_tensors", "cli_repeat"]
 
 
 def training_state(model, optimizer=None) -> dict[str, torch.Tensor]:
@@ -291,17 +289,3 @@ def cli_repeat(module, argv: list[str], exp_root: str, epochs: int,
         out[name] = diff + ([] if rec["meta"] == first["meta"] else ["meta"])
     return out
 
-
-@contextlib.contextmanager
-def nondeterministic():
-    """PyTorch's deterministic algorithms and cuDNN's deterministic flag
-    off inside, restored after: only to time what determinism costs."""
-    mode = torch.are_deterministic_algorithms_enabled()
-    cudnn = torch.backends.cudnn.deterministic
-    torch.use_deterministic_algorithms(False)
-    torch.backends.cudnn.deterministic = False
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(mode)
-        torch.backends.cudnn.deterministic = cudnn

@@ -53,7 +53,6 @@ def make_generator(device, *entropy: int) -> torch.Generator:
 # when the process makes its first cuBLAS handle; a fixed size keeps every
 # GEMM on one algorithm and one summation order
 CUBLAS_WORKSPACE_CONFIG = ":4096:8"
-_DETERMINISTIC_CUBLAS = (":4096:8", ":16:8")
 
 
 def select_device(name: str = "cuda",
@@ -74,12 +73,12 @@ def select_device(name: str = "cuda",
     index on its host) picks ``cuda:local_rank`` and makes it the current
     device; the CPU ignores it.
     """
-    if os.environ.get("CUBLAS_WORKSPACE_CONFIG") not in _DETERMINISTIC_CUBLAS:
+    if os.environ.get("CUBLAS_WORKSPACE_CONFIG") != CUBLAS_WORKSPACE_CONFIG:
         if torch.cuda.is_initialized():
             raise RuntimeError(
-                "CUDA started before CUBLAS_WORKSPACE_CONFIG was set, so "
-                "cuBLAS's workspace is not fixed; call select_device before "
-                "the first CUDA op")
+                f"CUDA started before CUBLAS_WORKSPACE_CONFIG was set to "
+                f"{CUBLAS_WORKSPACE_CONFIG}, so cuBLAS's workspace is not "
+                f"that one; call select_device before the first CUDA op")
         os.environ["CUBLAS_WORKSPACE_CONFIG"] = CUBLAS_WORKSPACE_CONFIG
     torch.use_deterministic_algorithms(True)
     # deterministic mode fills every fresh allocation with NaN by default;

@@ -55,15 +55,18 @@ def test_select_device_sets_determinism(monkeypatch):
 def test_select_device_refuses_cuda_started_without_cublas_config(
         monkeypatch):
     """The variable set after the first CUDA op would pass torch's own
-    check and change nothing; select_device raises instead.  Set before
-    (either of cuBLAS's two fixed sizes), it goes on."""
+    check and change nothing; select_device raises instead, also when
+    CUDA started under another workspace size.  Set to the port's one
+    before, it goes on."""
     monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
     monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
     with pytest.raises(RuntimeError, match="CUBLAS_WORKSPACE_CONFIG"):
         select_device("cpu")
-    for value in (":4096:8", ":16:8"):
-        monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", value)
-        assert select_device("cpu") == torch.device("cpu")
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":16:8")
+    with pytest.raises(RuntimeError, match=":4096:8"):
+        select_device("cpu")
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    assert select_device("cpu") == torch.device("cpu")
 
 
 def test_reverse_kl_deterministic():
@@ -164,3 +167,33 @@ def test_upsample_bilinear_matches_jax(shape):
         ref = np.moveaxis(np.asarray(ref), -1, 1)
         assert ours.shape == ref.shape
         assert np.abs(ours - ref).max() <= 1e-6 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 8, 8), (2, 5, 4, 16), (1, 2, 1, 3)])
+def test_upsample_bilinear_bf16_matches_jax(shape):
+    """A bf16 input: the JAX package's f32 matrices promote it and return
+    f32; the port's products run in f32 too and round once to bf16.  Its
+    output is within half a bf16 ulp of JAX's (2^-8 of each value, plus
+    1e-6 of the largest for f32's own sums), and its gradient, from a
+    bf16 cotangent, within one bf16 ulp of JAX's (2^-7 of each value):
+    both round the same f32 sums.  Matrices rounded to bf16 miss these
+    bounds some 15-150 times."""
+    rng = np.random.default_rng(0)
+    xb = torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)
+                          ).bfloat16()
+    gb = torch.from_numpy(rng.normal(0, 1, shape[:2] + (
+        2 * shape[2], 2 * shape[3])).astype(np.float32)).bfloat16()
+    xt = xb.clone().requires_grad_(True)
+    yt = t_bilinear(xt)
+    (gt,) = torch.autograd.grad(yt, xt, gb)
+    assert yt.dtype == gt.dtype == torch.bfloat16
+    xj = jnp.asarray(np.moveaxis(xb.float().numpy(), 1, -1), jnp.bfloat16)
+    yj, vjp = jax.vjp(j_bilinear, xj)
+    (gj,) = vjp(jnp.asarray(np.moveaxis(gb.float().numpy(), 1, -1),
+                            yj.dtype))
+    for ours, ref, ulps in ((yt, yj, 2.0 ** -8), (gt, gj, 2.0 ** -7)):
+        ours = ours.detach().float().numpy()
+        ref = np.moveaxis(np.asarray(ref, np.float32), -1, 1)
+        assert ours.shape == ref.shape
+        assert np.all(np.abs(ours - ref) <= ulps * np.abs(ref)
+                      + 1e-6 * np.abs(ref).max())
