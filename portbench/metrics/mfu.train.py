@@ -1,0 +1,9 @@
+"""The training step's counted operations (the reference's convolutions
+and products, forward and backward) over the window's seconds, as a share
+of the card's float32 peak."""
+
+from portbench.metrics._lib import mfu_pct, of_job
+
+
+def read(record):
+    return mfu_pct(record) if of_job(record, "train") else None
