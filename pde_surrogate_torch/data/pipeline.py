@@ -20,6 +20,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from ..utils.observability import count, span
+
 __all__ = ["DeviceDataset"]
 
 
@@ -60,22 +62,30 @@ class DeviceDataset:
                             for a in arrays)
 
     def epoch_indices(self, epoch: int) -> torch.Tensor:
-        """(steps, batch_size) gather indices for this epoch (pure in epoch)."""
-        if self.shuffle:
-            seed = np.random.SeedSequence([self.seed, int(epoch)])
-            g = torch.Generator().manual_seed(int(seed.generate_state(1)[0]))
-            perm = torch.randperm(self.n, generator=g)
-        else:
-            perm = torch.arange(self.n)
-        usable = self.steps_per_epoch * self.batch_size
-        return perm[:usable].view(self.steps_per_epoch,
-                                  self.batch_size).to(self.device)
+        """(steps, batch_size) gather indices for this epoch (pure in epoch),
+        drawn on the host and copied to the device (on a card the copy
+        waits for the device: ``sync.epoch_indices``)."""
+        with span("data.epoch"):
+            if self.shuffle:
+                seed = np.random.SeedSequence([self.seed, int(epoch)])
+                g = torch.Generator().manual_seed(
+                    int(seed.generate_state(1)[0]))
+                perm = torch.randperm(self.n, generator=g)
+            else:
+                perm = torch.arange(self.n)
+            usable = self.steps_per_epoch * self.batch_size
+            if self.device.type != "cpu":
+                count("sync.epoch_indices")
+            return perm[:usable].view(self.steps_per_epoch,
+                                      self.batch_size).to(self.device)
 
     def batches(self, epoch: int) -> Iterator[tuple]:
         """Iterate (arrays...) batches (this rank's shard) for one epoch."""
         idx = self.epoch_indices(epoch)[:, self.shard]
         for s in range(self.steps_per_epoch):
-            yield tuple(a.index_select(0, idx[s]) for a in self.arrays)
+            with span("data.gather"):
+                batch = tuple(a.index_select(0, idx[s]) for a in self.arrays)
+            yield batch
 
     def __len__(self) -> int:
         return self.steps_per_epoch

@@ -44,6 +44,7 @@ from ..ops.darcy import (_mean, flux_pressure_consistency, fv_cg_anchors,
 from ..ops.filters import SobelFilter
 from ..parallel.mesh import all_reduce_grads, all_reduce_sum, row_shard
 from ..utils.metrics import relative_l2, squared_error_sum
+from ..utils.observability import span
 from .schedules import one_cycle_schedule
 
 __all__ = ["CodecState", "create_state", "make_mixed_residual_step",
@@ -113,33 +114,38 @@ def _physics_loss(physics: str, x, output, sobel, weight_bound,
     this rank's partial sum.
     """
     rows = sobel.rows
-    if physics == "sobel":
-        return mixed_residual_loss(x, output, sobel, weight_bound, nonlinear)
-    if physics == "sobel_fvcg":
-        if nonlinear is not None:
-            raise ValueError("physics='sobel_fvcg' supports the linear law "
-                             "only")
-        loss, (pde, diri, neum) = mixed_residual_loss(x, output, sobel,
-                                                      weight_bound)
-        err_u, err_flux = fv_cg_anchors(x, output, fvcg_iters, rows)
-        anchor = fvcg_weight * err_u + fvcg_flux_weight * err_flux
-        return loss + anchor, (pde + anchor, diri, neum)
-    if physics in ("fv", "fvcg"):
-        if nonlinear is not None:
-            raise ValueError(f"physics='{physics}' supports the linear law "
-                             f"only")
-        if physics == "fv":
-            return fv_mixed_residual_loss(x, output, weight_bound, rows)
-        return fv_cg_error_loss(x, output, weight_bound, fvcg_iters, rows)
-    raise ValueError(f"unknown physics loss: {physics}")
+    with span("train.loss"):
+        if physics == "sobel":
+            return mixed_residual_loss(x, output, sobel, weight_bound,
+                                       nonlinear)
+        if physics == "sobel_fvcg":
+            if nonlinear is not None:
+                raise ValueError("physics='sobel_fvcg' supports the linear "
+                                 "law only")
+            loss, (pde, diri, neum) = mixed_residual_loss(x, output, sobel,
+                                                          weight_bound)
+            err_u, err_flux = fv_cg_anchors(x, output, fvcg_iters, rows)
+            anchor = fvcg_weight * err_u + fvcg_flux_weight * err_flux
+            return loss + anchor, (pde + anchor, diri, neum)
+        if physics in ("fv", "fvcg"):
+            if nonlinear is not None:
+                raise ValueError(f"physics='{physics}' supports the linear "
+                                 f"law only")
+            if physics == "fv":
+                return fv_mixed_residual_loss(x, output, weight_bound, rows)
+            return fv_cg_error_loss(x, output, weight_bound, fvcg_iters,
+                                    rows)
+        raise ValueError(f"unknown physics loss: {physics}")
 
 
 def _train_forward(state: CodecState, x: torch.Tensor, dropout_seed: int):
     """The train-mode forward of this step, its dropout masks drawn from
     (``dropout_seed``, ``state.step``)."""
-    state.model.train()
-    with dropout_masks(state.model, dropout_seed, state.step, state.mesh):
-        return state.model(x)
+    with span("train.forward"):
+        state.model.train()
+        with dropout_masks(state.model, dropout_seed, state.step,
+                           state.mesh):
+            return state.model(x)
 
 
 def _apply_update(state: CodecState, loss: torch.Tensor):
@@ -147,15 +153,23 @@ def _apply_update(state: CodecState, loss: torch.Tensor):
     (``all_reduce_grads``: the sum over ranks over the data ranks), then
     Adam at the scheduled lr of this update."""
     opt = state.optimizer
-    opt.zero_grad(set_to_none=True)
-    loss.backward()
-    if state.mesh is not None:
-        all_reduce_grads(state.model.parameters(), state.mesh)
-    lr = state.schedule(state.step)
-    for group in opt.param_groups:
-        group["lr"] = lr
-    opt.step()
+    _backward(state, loss)
+    with span("train.optimizer"):
+        lr = state.schedule(state.step)
+        for group in opt.param_groups:
+            group["lr"] = lr
+        opt.step()
     state.step += 1
+
+
+def _backward(state, loss: torch.Tensor) -> None:
+    """The gradients of ``loss`` into the parameters' ``grad``, summed over
+    the ranks of ``state.mesh`` (``all_reduce_grads``)."""
+    with span("train.backward"):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        if state.mesh is not None:
+            all_reduce_grads(state.model.parameters(), state.mesh)
 
 
 def global_metrics(metrics: dict, mesh) -> dict:
@@ -189,14 +203,15 @@ def make_mixed_residual_step(state: CodecState, sobel: SobelFilter,
         sobel = sobel.on_rows(rows)
 
     def step(x: torch.Tensor) -> dict:
-        output = _train_forward(state, x, dropout_seed)
-        loss, (pde, diri, neum) = _physics_loss(
-            physics, x, output, sobel, weight_bound, None, fvcg_weight,
-            fvcg_flux_weight, fvcg_iters)
-        _apply_update(state, loss)
-        return global_metrics({"loss": loss, "loss_pde": pde,
-                               "loss_dirichlet": diri, "loss_neumann": neum},
-                              state.mesh)
+        with span("train.step"):
+            output = _train_forward(state, x, dropout_seed)
+            loss, (pde, diri, neum) = _physics_loss(
+                physics, x, output, sobel, weight_bound, None, fvcg_weight,
+                fvcg_flux_weight, fvcg_iters)
+            _apply_update(state, loss)
+            return global_metrics({"loss": loss, "loss_pde": pde,
+                                   "loss_dirichlet": diri,
+                                   "loss_neumann": neum}, state.mesh)
 
     return step
 
@@ -209,10 +224,12 @@ def make_mle_step(state: CodecState, dropout_seed: int = 0):
     rows = row_shard(state.mesh)
 
     def step(x: torch.Tensor, y: torch.Tensor) -> dict:
-        output = _train_forward(state, x, dropout_seed)
-        loss = _mean((output - y) ** 2, rows)
-        _apply_update(state, loss)
-        return global_metrics({"loss": loss}, state.mesh)
+        with span("train.step"):
+            output = _train_forward(state, x, dropout_seed)
+            with span("train.loss"):
+                loss = _mean((output - y) ** 2, rows)
+            _apply_update(state, loss)
+            return global_metrics({"loss": loss}, state.mesh)
 
     return step
 

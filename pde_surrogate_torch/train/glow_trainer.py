@@ -42,11 +42,12 @@ from ..models.flow import actnorm_init_from_input, actnorm_module_paths
 from ..ops.darcy import (conv_boundary_condition, fv_cg_anchors,
                          mixed_residual_loss)
 from ..ops.filters import SobelFilter
-from ..parallel.mesh import (DataSpaceMesh, all_reduce_grads,
-                             batch_space_sharding, row_shard, shard_batch)
+from ..parallel.mesh import (DataSpaceMesh, batch_space_sharding, row_shard,
+                             shard_batch)
 from ..utils.config import make_generator
 from ..utils.metrics import relative_l2, squared_error_sum
-from .codec_trainer import _adam_l2, global_metrics
+from ..utils.observability import count, span
+from .codec_trainer import _adam_l2, _backward, global_metrics
 from .schedules import one_cycle_schedule
 
 __all__ = ["GlowState", "create_glow_state", "glow_lr",
@@ -109,19 +110,19 @@ def _guarded_update(state: GlowState, loss: torch.Tensor) -> None:
     """Backward, then Adam at the lr of the applied-update count, unless
     the NaN guard rejects the gradient."""
     opt = state.optimizer
-    opt.zero_grad(set_to_none=True)
-    loss.backward()
-    if state.mesh is not None:
-        all_reduce_grads(state.model.parameters(), state.mesh)
-    grads = [p.grad for group in opt.param_groups
-             for p in group["params"] if p.grad is not None]
-    finite = bool(_all_finite(grads))
+    _backward(state, loss)
+    with span("train.guard"):
+        grads = [p.grad for group in opt.param_groups
+                 for p in group["params"] if p.grad is not None]
+        count("sync.guard")
+        finite = bool(_all_finite(grads))
     state.notfinite_count = 0 if finite else state.notfinite_count + 1
     if finite or state.notfinite_count > MAX_CONSECUTIVE_ERRORS:
-        lr = state.schedule(state.updates)
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.step()
+        with span("train.optimizer"):
+            lr = state.schedule(state.updates)
+            for group in opt.param_groups:
+                group["lr"] = lr
+            opt.step()
         state.updates += 1
     state.step += 1
 
@@ -148,26 +149,27 @@ def reverse_kl_objective(x, output, log_likelihood, sobel: SobelFilter,
         raise ValueError(f"unknown glow physics loss: {physics}")
     rows = sobel.rows
     extra = {}
-    if physics == "fvcg":
-        diri, neum = conv_boundary_condition(output, rows)
-        err_u, err_flux = fv_cg_anchors(x, output, fvcg_iters, rows)
-        residual = err_u + err_flux
-        loss_pde = residual + diri * weight_bound
-        boundary = diri
-        extra = {"anchor_u": err_u, "anchor_flux": err_flux}
-    else:
-        loss_pde, (residual, diri, neum) = mixed_residual_loss(
-            x, output, sobel, weight_bound)
-        boundary = diri + neum
-        if physics == "sobel_fvcg":
+    with span("train.loss"):
+        if physics == "fvcg":
+            diri, neum = conv_boundary_condition(output, rows)
             err_u, err_flux = fv_cg_anchors(x, output, fvcg_iters, rows)
-            anchor = fvcg_weight * err_u + fvcg_flux_weight * err_flux
-            loss_pde = loss_pde + anchor
-            residual = residual + anchor
+            residual = err_u + err_flux
+            loss_pde = residual + diri * weight_bound
+            boundary = diri
             extra = {"anchor_u": err_u, "anchor_flux": err_flux}
-    neg_entropy = log_likelihood.mean() / LN2 / n_out_pixels
-    return {"loss": loss_pde * beta + neg_entropy, "residual": residual,
-            "boundary": boundary, "neg_entropy": neg_entropy, **extra}
+        else:
+            loss_pde, (residual, diri, neum) = mixed_residual_loss(
+                x, output, sobel, weight_bound)
+            boundary = diri + neum
+            if physics == "sobel_fvcg":
+                err_u, err_flux = fv_cg_anchors(x, output, fvcg_iters, rows)
+                anchor = fvcg_weight * err_u + fvcg_flux_weight * err_flux
+                loss_pde = loss_pde + anchor
+                residual = residual + anchor
+                extra = {"anchor_u": err_u, "anchor_flux": err_flux}
+        neg_entropy = log_likelihood.mean() / LN2 / n_out_pixels
+        return {"loss": loss_pde * beta + neg_entropy, "residual": residual,
+                "boundary": boundary, "neg_entropy": neg_entropy, **extra}
 
 
 def make_reverse_kl_step(state: GlowState, sobel: SobelFilter, beta: float,
@@ -187,18 +189,23 @@ def make_reverse_kl_step(state: GlowState, sobel: SobelFilter, beta: float,
     sobel = _on_rows(sobel, state.mesh)
 
     def step(x: torch.Tensor, eps_list=None) -> dict:
-        model.train()
-        gen = None if eps_list is not None else make_generator(
-            x.device, state.seed, state.step)
-        if state.mesh is not None:
-            eps_list = _rank_noise(model, state.mesh, x, gen, eps_list)
-        output, log_likelihood = model.generate(x, eps_list=eps_list,
-                                                generator=gen)
-        metrics = reverse_kl_objective(
-            x, output, log_likelihood, sobel, beta, weight_bound,
-            n_out_pixels, physics, fvcg_weight, fvcg_flux_weight, fvcg_iters)
-        _guarded_update(state, metrics["loss"])
-        return global_metrics(metrics, state.mesh)
+        with span("train.step"):
+            with span("train.noise"):
+                gen = None if eps_list is not None else make_generator(
+                    x.device, state.seed, state.step)
+                if state.mesh is not None:
+                    eps_list = _rank_noise(model, state.mesh, x, gen,
+                                           eps_list)
+            with span("train.forward"):
+                model.train()
+                output, log_likelihood = model.generate(
+                    x, eps_list=eps_list, generator=gen)
+            metrics = reverse_kl_objective(
+                x, output, log_likelihood, sobel, beta, weight_bound,
+                n_out_pixels, physics, fvcg_weight, fvcg_flux_weight,
+                fvcg_iters)
+            _guarded_update(state, metrics["loss"])
+            return global_metrics(metrics, state.mesh)
 
     return step
 
@@ -240,12 +247,16 @@ def make_forward_kl_step(state: GlowState, n_out_pixels: int):
     model = state.model
 
     def step(x: torch.Tensor, y: torch.Tensor) -> dict:
-        model.train()
-        _, logp, _ = model(y, x)
-        bits_per_pixel = -logp.mean() / LN2 / n_out_pixels
-        _guarded_update(state, bits_per_pixel)
-        loss = global_metrics({"loss": bits_per_pixel}, state.mesh)["loss"]
-        return {"loss": loss, "bits_per_pixel": loss}
+        with span("train.step"):
+            with span("train.forward"):
+                model.train()
+                _, logp, _ = model(y, x)
+            with span("train.loss"):
+                bits_per_pixel = -logp.mean() / LN2 / n_out_pixels
+            _guarded_update(state, bits_per_pixel)
+            loss = global_metrics({"loss": bits_per_pixel},
+                                  state.mesh)["loss"]
+            return {"loss": loss, "bits_per_pixel": loss}
 
     return step
 

@@ -23,6 +23,7 @@ from scipy.stats import norm as scipy_norm
 
 from ..ops.lhs import lhs
 from ..utils.config import make_generator
+from ..utils.observability import count, span
 from ..viz.plot import (load_pyplot, plot_MC2, plot_prediction_bayes2,
                         plot_row, save_samples)
 
@@ -46,6 +47,8 @@ class GlowSurrogate:
                eps_list=None) -> torch.Tensor:
         """(n_samples, B, C, H, W) samples for inputs (B, C, H, W)."""
         self.model.eval()
+        if not (torch.is_tensor(x) and x.device == self.device):
+            count("sync.sample_input")      # a host copy waits on a card
         x = torch.as_tensor(x, device=self.device)
         return self.model.sample(x, self.n_samples, generator=generator,
                                  eps_list=eps_list,
@@ -68,30 +71,35 @@ class GlowSurrogate:
         ``batch_size`` (all N used; only when N has no divisor near
         ``batch_size`` the remainder is dropped, with a line saying so).
         """
-        x = torch.as_tensor(mc_x)
-        n = len(x)
-        b = max(d for d in range(1, min(batch_size, n) + 1) if n % d == 0)
-        if b < max(batch_size // 2, 1):
-            b = min(batch_size, n)
-            n_use = (n // b) * b
-            print(f"[propagate] N={n} has no divisor near {batch_size}; "
-                  f"using first {n_use} MC samples")
-            x, n = x[:n_use], n_use
-        n_chunks = n // b
-        eys, vys = [], []
-        for v in range(var_samples):
-            ey = eyy = 0.0
-            for t in range(n_chunks):
-                s = self.sample(x[t * b:(t + 1) * b],
-                                make_generator(self.device, seed, v, t))
-                ey = ey + s.mean(dim=(0, 1))
-                eyy = eyy + (s * s).mean(dim=(0, 1))
-            ey, eyy = ey / n_chunks, eyy / n_chunks
-            eys.append(ey)
-            vys.append(eyy - ey ** 2)
-        ey, vy = torch.stack(eys), torch.stack(vys)
-        return (ey.mean(0), ey.var(0, unbiased=False), vy.mean(0),
-                vy.var(0, unbiased=False))
+        with span("uq.propagate"):
+            x = torch.as_tensor(mc_x)
+            n = len(x)
+            b = max(d for d in range(1, min(batch_size, n) + 1)
+                    if n % d == 0)
+            if b < max(batch_size // 2, 1):
+                b = min(batch_size, n)
+                n_use = (n // b) * b
+                print(f"[propagate] N={n} has no divisor near {batch_size}; "
+                      f"using first {n_use} MC samples")
+                x, n = x[:n_use], n_use
+            n_chunks = n // b
+            eys, vys = [], []
+            for v in range(var_samples):
+                ey = eyy = 0.0
+                for t in range(n_chunks):
+                    with span("uq.chunk"):
+                        s = self.sample(x[t * b:(t + 1) * b],
+                                        make_generator(self.device, seed, v,
+                                                       t))
+                        ey = ey + s.mean(dim=(0, 1))
+                        eyy = eyy + (s * s).mean(dim=(0, 1))
+                ey, eyy = ey / n_chunks, eyy / n_chunks
+                eys.append(ey)
+                vys.append(eyy - ey ** 2)
+            with span("uq.moments"):
+                ey, vy = torch.stack(eys), torch.stack(vys)
+                return (ey.mean(0), ey.var(0, unbiased=False), vy.mean(0),
+                        vy.var(0, unbiased=False))
 
 
 class UQCondGlow:

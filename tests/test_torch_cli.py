@@ -213,7 +213,8 @@ def test_codec_options_run(tmp_path, kind, flag, suffix):
     drivers: one epoch with finite losses and metrics, in the run dir the
     JAX parser names (the JAX MLE driver has no --concat-free: its suffix
     is the mixed-residual driver's), served by predict_codec with the
-    recorded dtype and layout; the profiled epoch writes a trace."""
+    recorded dtype and layout; the profiled epoch writes a trace with its
+    steps' program spans."""
     import importlib
     main = t_train.main if kind == "mixed_residual" else t_mle.main
     (state, logger), run = _tiny_run(main, tmp_path / "exp", tmp_path / "d",
@@ -230,6 +231,12 @@ def test_codec_options_run(tmp_path, kind, flag, suffix):
     assert np.isfinite(logger["r2_test"]).all()
     trace = run / "training" / "profile" / "trace.json"
     assert trace.is_file() == ("--profile-epoch" in flag)
+    if trace.is_file():
+        # the profiled epoch's two steps, each with its program spans
+        spans = [e["name"] for e in json.loads(trace.read_text())[
+            "traceEvents"] if e.get("cat") == "program_span"]
+        assert spans.count("train.step") == spans.count("data.gather") == 2
+        assert spans.count("train.backward") == 2
     model = _codec_common.build_model(th5.load_args(str(run)), "cpu")
     assert model.dtype == (torch.bfloat16 if "bf16" in flag else None)
     assert model.features.EncBlock1.concat_free == ("--concat-free" in flag)

@@ -474,3 +474,54 @@ def test_determinism_cublas_config_must_precede_cuda(cuda):
                     "a = torch.randn(256, 256, device='cuda'); "
                     "print(bool(torch.isfinite(a @ a).all()))")
     assert first.stdout.split() == [":4096:8", "True", "True"], first.stderr
+
+
+def test_profile_trace_spans_hold_the_card_syncs(cuda, tmp_path):
+    """``profile_trace`` on the card around one epoch of a small cGlow
+    (enc / flow [2, 2], 32^2, batch 8, 3 steps): its trace holds each
+    step's program spans on the trace's clock, every blocking sync the
+    host made lies inside the span that counts it (the epoch's index copy
+    in ``data.epoch``, each guard's flag read in ``train.guard``) to
+    within 20 us, and each step's first kernel launch lies in its
+    ``train.noise`` or ``train.forward`` span."""
+    import json
+
+    from pde_surrogate_torch.data.pipeline import DeviceDataset
+    from pde_surrogate_torch.models.glow import MultiScaleCondGlow
+    from pde_surrogate_torch.ops.filters import SobelFilter
+    from pde_surrogate_torch.train import glow_trainer
+    from pde_surrogate_torch.utils.observability import profile_trace
+    torch.manual_seed(0)
+    state = glow_trainer.create_glow_state(
+        MultiScaleCondGlow(32, 1, 3, [2, 2], [2, 2]).to(cuda), lr_max=1e-3,
+        total_steps=10)
+    step = glow_trainer.make_reverse_kl_step(state, SobelFilter(32), 150.0,
+                                             50.0, 3 * 32 * 32)
+    ds = DeviceDataset(sample_kle(24, 32, 64, rng=2)[:, None],
+                       batch_size=8, device=cuda)
+    for (x,) in ds.batches(0):      # warm cuDNN's choices
+        step(x)
+    with profile_trace(str(tmp_path), device=cuda):
+        for (x,) in ds.batches(1):
+            step(x)
+    trace = json.loads((tmp_path / "trace.json").read_text())
+    assert trace["programCounters"] == {"sync.epoch_indices": 1,
+                                        "sync.guard": 3}
+    events = trace["traceEvents"]
+    spans = [e for e in events if e.get("cat") == "program_span"]
+    assert [e["name"] for e in spans].count("train.step") == 3
+
+    def inside(t0, t1, names):
+        return [e["name"] for e in spans if e["name"] in names
+                and e["ts"] - 20 <= t0 and t1 <= e["ts"] + e["dur"] + 20]
+
+    syncs = [e for e in events if e.get("name") == "cudaStreamSynchronize"]
+    assert len(syncs) == 4
+    assert [inside(e["ts"], e["ts"] + e["dur"], ("data.epoch", "train.guard"))
+            for e in sorted(syncs, key=lambda e: e["ts"])] == [
+        ["data.epoch"]] + [["train.guard"]] * 3
+    launches = sorted(e["ts"] for e in events
+                      if e.get("name") == "cudaLaunchKernel")
+    for s in (e for e in spans if e["name"] == "train.step"):
+        first = next(t for t in launches if t >= s["ts"])
+        assert inside(first, first, ("train.noise", "train.forward"))
